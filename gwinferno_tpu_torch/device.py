@@ -1,0 +1,22 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None):
+    """``torch.device`` for an entry point: CUDA unless the caller names
+    another device.
+
+    Raises when CUDA is asked for (explicitly or by default) and is absent:
+    the port never falls back to the CPU on its own.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU explicitly"
+        )
+    return dev

@@ -1,0 +1,156 @@
+"""The bench problem: the 14-hyperparameter powerlaw+peak model with spins.
+
+Counterpart of ``bench.py::make_model`` (its flat path): powerlaw+peak
+``(m1, q)``, independent beta spin magnitudes parameterized by ``(mu, var)``,
+independent isotropic+aligned tilt mixtures and a powerlaw-in-``(1+z)``
+redshift evolution, fed to :func:`hierarchical_likelihood` with
+``min_neff_cut=True``.
+
+The PE and injection banks are concatenated once into one vector per
+parameter and held on the device, so each gradient evaluates the log-weight
+chain once over ``N_events * N_samples + N_found`` samples for all chains
+``(C, N)``.  The data-only terms (``log prior``, ``log dVc/dz``,
+``log(1+z)`` and the ``z <= zmax`` mask) are computed once at construction.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.parametric.parametric import log_independent_spin_magnitude_beta_dist
+from ..models.parametric.parametric import log_independent_spin_tilt
+from ..models.parametric.parametric import log_plpeak_primary_ratio_pdf
+from .. import ppl
+from ..ppl import distributions as dist
+from .analysis import hierarchical_likelihood
+
+__all__ = ["BenchModel", "FIDUCIAL_INIT", "TRUTH", "INIT_JITTER", "jittered_init", "MMIN", "MMAX"]
+
+MMIN, MMAX = 5.0, 100.0
+PARAMS7 = ("mass_1", "mass_ratio", "redshift", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2")
+
+FIDUCIAL_INIT = {
+    "alpha": -2.35, "beta": 1.0, "mu_peak": 35.0, "sig_peak": 5.0, "lambda_m": 0.25,
+    "mu_a1": 0.35, "var_a1": 0.03, "mu_a2": 0.35, "var_a2": 0.03,
+    "lambda_ct1": 0.7, "lambda_ct2": 0.7, "sig_ct1": 0.5, "sig_ct2": 0.5,
+    "lamb": 1.7, "unscaled_rate": 69.0,
+}
+
+# the synthetic catalog's population truth, keyed by model site name
+TRUTH = {
+    "alpha": -2.35, "beta": 1.0, "mu_peak": 35.0, "sig_peak": 5.0, "lambda_m": 0.25,
+    "mu_a1": 0.35, "var_a1": 0.03, "mu_a2": 0.35, "var_a2": 0.03,
+    "lambda_ct1": 0.7, "lambda_ct2": 0.7, "sig_ct1": 0.5, "sig_ct2": 0.5,
+    "lamb": 1.7,
+}
+
+# half-widths of the per-chain uniform jitter around FIDUCIAL_INIT
+INIT_JITTER = {
+    "alpha": 0.3, "beta": 0.3, "mu_peak": 2.0, "sig_peak": 1.0, "lambda_m": 0.05,
+    "mu_a1": 0.05, "var_a1": 0.01, "mu_a2": 0.05, "var_a2": 0.01,
+    "lambda_ct1": 0.1, "lambda_ct2": 0.1, "sig_ct1": 0.15, "sig_ct2": 0.15,
+    "lamb": 0.5, "unscaled_rate": 10.0,
+}
+
+
+def beta_ab(mu, var):
+    """The (mu, var) -> (alpha, beta) moment map of the Beta distribution."""
+    nu = mu * (1.0 - mu) / var - 1.0
+    return mu * nu, (1.0 - mu) * nu
+
+
+def jittered_init(num_chains, generator, dtype=torch.float32):
+    """Overdispersed per-chain starts: ``FIDUCIAL_INIT`` plus a uniform
+    jitter of ``INIT_JITTER`` half-width, ``{site: (num_chains,)}`` on the
+    generator's device."""
+    out = {}
+    for k, v in FIDUCIAL_INIT.items():
+        u = torch.rand(num_chains, generator=generator, device=generator.device, dtype=dtype)
+        out[k] = v + INIT_JITTER[k] * (2.0 * u - 1.0)
+    return out
+
+
+class BenchModel(torch.nn.Module):
+    """The bench model as a PPL model: calling it declares the 15 sample
+    sites and the likelihood factor.  Sites carry a leading chain axis."""
+
+    def __init__(self, pedict, injdict, constants, z_model, device=None, dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        E, S = np.shape(pedict["mass_1"])
+        self.n_events, self.n_samples = int(E), int(S)
+        self.constants = dict(constants)
+        self.z_model = z_model
+
+        def cat(name):
+            return np.concatenate([np.asarray(pedict[name], np.float64).reshape(-1), np.asarray(injdict[name], np.float64)])
+
+        bank = {k: cat(k) for k in PARAMS7}
+        bank["log_prior"] = np.log(cat("prior"))
+        bank["log_dvdz"] = np.log(np.concatenate([np.asarray(z_model.dVdzs[1]).reshape(-1), np.asarray(z_model.dVdzs[0])]))
+        bank["log1pz"] = np.log1p(bank["redshift"])
+        for k, v in bank.items():
+            self.register_buffer(k, torch.as_tensor(v, dtype=dtype, device=dev))
+        self.register_buffer("z_ok", torch.as_tensor(bank["redshift"] <= z_model.zmax, device=dev))
+
+    def log_weight(self, th):
+        """Per-sample log-weights ``(C, N)`` of the population ``th`` (each
+        hyperparameter ``(C, 1)``) over the concatenated bank."""
+        logw = (
+            log_plpeak_primary_ratio_pdf(
+                self.mass_1, self.mass_ratio, th["alpha"], th["beta"], MMIN, MMAX,
+                th["mu_peak"], th["sig_peak"], th["lambda_m"],
+            )
+            + log_independent_spin_magnitude_beta_dist(
+                self.a_1, self.a_2, th["alpha_a1"], th["beta_a1"], th["alpha_a2"], th["beta_a2"]
+            )
+            + log_independent_spin_tilt(
+                self.cos_tilt_1, self.cos_tilt_2, th["lambda_ct1"], th["lambda_ct2"], th["sig_ct1"], th["sig_ct2"]
+            )
+            + torch.where(
+                self.z_ok,
+                self.log_dvdz + (th["lamb"] - 1.0) * self.log1pz - th["z_lognorm"],
+                torch.finfo(self.log_dvdz.dtype).min,
+            )
+            - self.log_prior
+        )
+        return torch.where(torch.isnan(logw) | (logw == torch.inf), -torch.inf, logw)
+
+    def forward(self):
+        th = {
+            "beta": ppl.sample("beta", dist.Normal(0, 5)),
+            "alpha": ppl.sample("alpha", dist.Normal(0, 5)),
+            "mu_peak": ppl.sample("mu_peak", dist.Uniform(MMIN, MMAX)),
+            "sig_peak": ppl.sample("sig_peak", dist.HalfNormal(10)),
+            "lambda_m": ppl.sample("lambda_m", dist.Uniform(0, 1)),
+            "mu_a1": ppl.sample("mu_a1", dist.Uniform(0, 1)),
+            "var_a1": ppl.sample("var_a1", dist.Uniform(0.005, 0.25)),
+            "mu_a2": ppl.sample("mu_a2", dist.Uniform(0, 1)),
+            "var_a2": ppl.sample("var_a2", dist.Uniform(0.005, 0.25)),
+            "lambda_ct1": ppl.sample("lambda_ct1", dist.Uniform(0, 1)),
+            "lambda_ct2": ppl.sample("lambda_ct2", dist.Uniform(0, 1)),
+            "sig_ct1": ppl.sample("sig_ct1", dist.Uniform(0.1, 4)),
+            "sig_ct2": ppl.sample("sig_ct2", dist.Uniform(0.1, 4)),
+            "lamb": ppl.sample("lamb", dist.Normal(0, 5)),
+        }
+        th["alpha_a1"], th["beta_a1"] = beta_ab(th["mu_a1"], th["var_a1"])
+        th["alpha_a2"], th["beta_a2"] = beta_ab(th["mu_a2"], th["var_a2"])
+        z_lognorm = torch.log(self.z_model.normalization(th["lamb"]))
+        th["z_lognorm"] = z_lognorm
+
+        C = th["lamb"].shape[0]
+        logw = self.log_weight({k: v[:, None] for k, v in th.items()})
+        n_pe = self.n_events * self.n_samples
+        c = self.constants
+        hierarchical_likelihood(
+            logw[:, :n_pe].reshape(C, self.n_events, self.n_samples),
+            logw[:, n_pe:],
+            total_inj=c["total_inj"],
+            Nobs=c["nObs"],
+            Tobs=c["obs_time"],
+            surveyed_hypervolume=torch.exp(z_lognorm),
+            marginalize_selection=False,
+            min_neff_cut=True,
+        )

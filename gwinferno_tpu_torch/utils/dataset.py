@@ -1,0 +1,74 @@
+"""A lightweight labeled-array container, read side.
+
+Counterpart of ``gwinferno_tpu/utils/dataset.py``: named dims, coords and
+attrs, read from the HDF5 group layout the JAX package writes.  ``h5py`` is
+imported inside the readers only, so the port imports on a machine that has
+no ``h5py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["DataArray", "Dataset", "load_groups"]
+
+
+class DataArray:
+    """n-d array + dim names + per-dim coordinate arrays + attrs."""
+
+    def __init__(self, data, dims, coords=None, attrs=None):
+        self.data = np.asarray(data)
+        self.dims = tuple(dims)
+        if self.data.ndim != len(self.dims):
+            raise ValueError(f"data of shape {self.data.shape} does not match dims {self.dims}")
+        self.coords = dict(coords or {})
+        self.attrs = dict(attrs or {})
+
+
+class Dataset:
+    """Dict of DataArrays + shared attrs."""
+
+    def __init__(self, variables=None, attrs=None):
+        self.variables = dict(variables or {})
+        self.attrs = dict(attrs or {})
+
+    def __getitem__(self, name):
+        return self.variables[name]
+
+    @classmethod
+    def from_hdf5(cls, path, group=None):
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            return cls._read(f[group] if group else f)
+
+    @classmethod
+    def _read(cls, g):
+        coords = {}
+        for name in g:
+            if name.startswith("_coord_"):
+                vals = g[name][()]
+                if vals.dtype.kind == "S":
+                    vals = np.array([v.decode() for v in vals])
+                coords[name[len("_coord_"):]] = vals
+        data_vars = {}
+        for name in g:
+            if name.startswith("_coord_"):
+                continue
+            d = g[name]
+            dims_attr = d.attrs.get("dims")
+            if dims_attr is None:
+                dims = tuple(f"dim{i}" for i in range(d.ndim))
+            else:
+                dims = tuple(s.decode() if isinstance(s, bytes) else str(s) for s in dims_attr)
+            attrs = {k: v for k, v in d.attrs.items() if k != "dims"}
+            data_vars[name] = DataArray(d[()], dims, {dim: coords[dim] for dim in dims if dim in coords}, attrs)
+        return cls(data_vars, dict(g.attrs))
+
+
+def load_groups(path):
+    """Read all top-level groups of an HDF5 file as Datasets."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {name: Dataset._read(f[name]) for name in f if isinstance(f[name], h5py.Group)}

@@ -1,0 +1,143 @@
+"""The port stands alone: no JAX, no JAX package, h5py only lazily; CUDA
+entry points never fall back to the CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "gwinferno_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(tree):
+    """(module name, at module level?) for every absolute import."""
+    top = {id(node) for node in tree.body}
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(a.name, id(node) in top) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            out.append((node.module, id(node) in top))
+    return out
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for name, at_top in _imported_modules(tree):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "gwinferno_tpu"), f"{path} imports {name}"
+        assert not (root == "h5py" and at_top), f"{path} imports h5py at module level"
+
+
+def test_port_and_smoke_import_without_jax_and_h5py():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        "import gwinferno_tpu_torch\n"
+        "for m in pkgutil.walk_packages(gwinferno_tpu_torch.__path__, 'gwinferno_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "assert 'gwinferno_tpu' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from gwinferno_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    import numpy as np
+
+    from gwinferno_tpu_torch.infer import MCMC, NUTS
+    from gwinferno_tpu_torch.models.parametric.parametric import PowerlawRedshiftModel
+    from gwinferno_tpu_torch.pipeline.utils import to_tensors
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MCMC(NUTS(lambda: None))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        to_tensors({"x": np.zeros(3)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PowerlawRedshiftModel(np.full((2, 3), 0.5), np.full(4, 0.5))
+
+
+def test_double_logsumexp_on_cpu_uses_the_plain_version(monkeypatch):
+    from gwinferno_tpu_torch.ops import fused
+
+    def no_kernel(x):
+        raise AssertionError("the CUDA kernel must not run for a CPU tensor")
+
+    monkeypatch.setattr(fused, "dlse_cuda", no_kernel)
+    before = fused.DLSE_KERNEL.launches
+    x = torch.randn(3, 7, dtype=torch.float64)
+    l1, l2 = fused.double_logsumexp(x)
+    p1, p2 = fused._dlse_torch(x)
+    assert torch.equal(l1, p1) and torch.equal(l2, p2)
+    assert fused.DLSE_KERNEL.launches == before
+
+
+def test_dlse_cuda_rejects_what_the_kernel_does_not_take():
+    from gwinferno_tpu_torch.ops.fused import dlse_cuda
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dlse_cuda(torch.zeros(2, 3))
+
+
+@pytest.mark.cuda
+def test_k1_kernel_matches_plain_version_on_the_card():
+    """K1 on the card against its plain version (both dtypes, -inf rows,
+    the gradient through the autograd Function)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gwinferno_tpu_torch.ops.fused import DLSE_KERNEL, _dlse_torch, double_logsumexp
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, tol in ((torch.float32, dict(atol=1e-4, rtol=0.0)), (torch.float64, dict(atol=0.0, rtol=1e-12))):
+        x = 10.0 + 3.0 * torch.randn(48, 5000, generator=g, device="cuda", dtype=dtype)
+        x[2] = -torch.inf
+        x[7, ::3] = -torch.inf
+        before = DLSE_KERNEL.launches
+        got, want = double_logsumexp(x), _dlse_torch(x)
+        assert DLSE_KERNEL.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(torch.isinf(a), torch.isinf(b))
+            fin = torch.isfinite(b)
+            torch.testing.assert_close(a[fin], b[fin], **tol)
+        xg = x.clone().requires_grad_(True)
+        l1, l2 = double_logsumexp(xg)
+        (grad,) = torch.autograd.grad((l1[torch.isfinite(l1)].sum() + 2 * l2[torch.isfinite(l2)].sum()), xg)
+        assert torch.isfinite(grad).all()
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_nothing():
+    code = "import sys, torch; torch.cuda.is_available = lambda: False; sys.argv = ['chip_smoke.py']; import chip_smoke; chip_smoke.main()"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "CUDA is not available" in out.stderr
