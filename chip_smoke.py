@@ -15,13 +15,27 @@ and with its wall time as it ends:
    torch version in float32 and float64, gradient included, at the main
    path's shapes plus all--inf and partly--inf rows; kernel, plain and
    library times;
-4. the main path at full catalog width: a synthetic catalog made from
-   ``--seed`` with numpy (69 events x 8000 PE samples, 46,770 found
-   injections), the bench model's potential and gradient for 16 chains
-   (checked against a float64 CPU evaluation on a slice of the catalog),
-   then a 16-chain dense-mass NUTS run (depth 6) with warmup;
-5. the kernels line (one JSON object), then the contract line
+4. the flat route (the default) at full catalog width: a synthetic catalog
+   made from ``--seed`` with numpy (69 events x 8000 PE samples, 46,770
+   found injections), the bench model's potential and gradient for 16
+   chains (checked against a float64 CPU evaluation on a slice of the
+   catalog), then a 16-chain dense-mass NUTS run (depth 6) with warmup;
+5. K2 (``ops/csrc/streamed.cu``, the streamed whole-chain likelihood,
+   forward and backward) held against its plain torch version on the
+   streamed route's two banks (PE ``(69, 8000)``, injections ``(6, 8192)``)
+   for 1 and 16 chains, float64 and float32, and on a small bank that drives
+   every branch; kernel, plain and bound times;
+6. the streamed route: its potential and gradient against the flat
+   route's at the same point, both timed, then the same NUTS run on it, then
+   a ``torch.profiler`` trace of both routes' potential + gradient (device
+   time, device operations, busy share);
+7. the kernels line (one JSON object), then the contract line
    ``{"ok": true, "device": {...}}``, last on stdout.
+
+Launch counts are set to 0 just before each route is driven (the flat
+route's gradients and NUTS run; the streamed route's NUTS run) and read just
+after: K1's from the flat route, K2's from the streamed route (where K1
+must not run).
 
 Any failure raises, with a traceback and a non-zero exit code; no phase
 catches its own failure.  Without CUDA the script exits non-zero before
@@ -56,6 +70,11 @@ from gwinferno_tpu_torch.ops._build import build_all  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import DLSE_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import _dlse_torch  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import double_logsumexp  # noqa: E402
+from gwinferno_tpu_torch.ops import streamed  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import STREAMED_BWD_KERNEL  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import STREAMED_FWD_KERNEL  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bench_model import MMAX  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bench_model import MMIN  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import TRUTH  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import BenchModel  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import jittered_init  # noqa: E402
@@ -73,6 +92,19 @@ F32_FLOP_PER_S = 67e12
 # K1's arithmetic per element: compare, subtract, exp, two adds, a multiply
 # and the rare rescale -- counted as 8 operations
 K1_OPS_PER_ELEMENT = 8
+# special-function unit results/s: 16 per clock per SM for compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput: exp2, log2, reciprocal), x 132 SMs x 1.98 GHz, the boost clock
+# behind the 67 TFLOP/s above (132 SMs x 128 lanes x 2 flops x 1.98 GHz)
+SFU_PER_S = 16 * 132 * 1.98e9
+# K2's work per sample in support, per chain, counted from csrc/streamed.cu:
+# transcendental calls (exp, log, log1p, expm1; each needs at least one
+# special-function result) and the other float operations.  Forward: q norm
+# 2, three logaddexps 2 each, the online lse 1.  Backward: q norm 2 and its
+# derivative 1, three logaddexps 4 each (with both responsibilities), the
+# weight 2.
+K2_FWD_SFU, K2_BWD_SFU = 9, 17
+K2_FWD_OPS, K2_BWD_OPS = 60, 140
 
 # synthetic search: proxy SNR ~ Mc_det^(5/6) / DL with a random projection
 D0_MPC = 1600.0
@@ -207,6 +239,59 @@ def make_catalog(seed, n_events=N_EVENTS, n_samples=N_SAMPLES, n_found=N_FOUND):
     return pedict, injdict, constants
 
 
+def k2_edge_case(seed, rows=6, n_samples=700, zmax=1.2):
+    """A small bank that drives every branch of K2's chain, made from
+    ``seed`` with numpy: ``(banks, valid, zmax)``.
+
+    Samples fall below ``mmin / m1`` in q, outside ``[MMIN, MMAX]`` in m1
+    (``mmin / m1 > 1``), outside ``[-1, 1]`` in the tilts and above
+    ``zmax``; row 0 has spin magnitudes exactly 0 and 1 and a padded tail
+    (edge-replicated, marked invalid); the second last row has every m1
+    below ``MMIN`` (all ``-inf``); the last row is in support everywhere but
+    has every sample above ``zmax`` (the redshift floor on every sample).
+    """
+    rng = np.random.default_rng(seed)
+    shape = (rows, n_samples)
+    m1 = rng.uniform(3.0, 110.0, shape)
+    q = rng.uniform(0.01, 1.05, shape)
+    a1, a2 = rng.uniform(-0.05, 1.05, shape), rng.uniform(-0.05, 1.05, shape)
+    a1[0, :4], a1[0, 4:8], a2[0, 8:12], a2[0, 12:16] = 0.0, 1.0, 0.0, 1.0
+    ct1, ct2 = rng.uniform(-1.1, 1.1, shape), rng.uniform(-1.1, 1.1, shape)
+    z = rng.uniform(0.01, 1.5, shape)
+    m1[-2] = rng.uniform(1.0, 4.9, n_samples)
+    m1[-1] = rng.uniform(6.0, 90.0, n_samples)
+    q[-1] = rng.uniform(0.0, 1.0, n_samples) * (1.0 - 5.0 / m1[-1]) + 5.0 / m1[-1]
+    a1[-1], a2[-1] = rng.uniform(0.01, 0.99, (2, n_samples))
+    ct1[-1], ct2[-1] = rng.uniform(-0.99, 0.99, (2, n_samples))
+    z[-1] = rng.uniform(zmax + 0.01, 1.5, n_samples)
+    banks = {
+        "mass_1": m1, "mass_ratio": q, "redshift": z, "a_1": a1, "a_2": a2, "cos_tilt_1": ct1, "cos_tilt_2": ct2,
+        "log_prior": rng.normal(-3.0, 1.0, shape), "log_dvdz": rng.normal(22.0, 0.5, shape), "log1pz": np.log1p(z),
+    }
+    valid = np.ones(shape)
+    pad = n_samples - 50
+    valid[0, pad:] = 0.0
+    for v in banks.values():
+        v[0, pad:] = v[0, pad - 1]
+    return banks, valid, zmax
+
+
+def k2_edge_theta(num_chains, dtype=torch.float64, device="cpu"):
+    """Hyperparameters ``{name: (num_chains,)}`` for :func:`k2_edge_case`:
+    beta cycles through -1.5, -1 (the logarithmic q norm), -0.5 and 1.2, and
+    one chain in four has a spin-magnitude alpha below 1 (``+inf`` at a = 0)."""
+    c = np.arange(num_chains)
+    th = {
+        "alpha": -2.3 + 0.1 * c, "beta": np.array([-1.5, -1.0, -0.5, 1.2])[c % 4], "mu_peak": 35.0 - c,
+        "sig_peak": 5.0 + 0.2 * c, "lambda_m": 0.25 + 0.01 * c,
+        "alpha_a1": np.where(c % 4 == 3, 0.8, 1.6 + 0.05 * c), "beta_a1": 2.4 + 0.05 * c,
+        "alpha_a2": 1.7 + 0.05 * c, "beta_a2": 2.2 + 0.05 * c,
+        "lambda_ct1": 0.7 - 0.02 * c, "lambda_ct2": 0.6 + 0.02 * c, "sig_ct1": 0.5 + 0.05 * c, "sig_ct2": 0.6 + 0.05 * c,
+        "lamb": 1.7 - 0.1 * c, "z_lognorm": 3.0 + 0.1 * c,
+    }
+    return {k: torch.as_tensor(np.array(np.broadcast_to(v, (num_chains,))), dtype=dtype, device=device) for k, v in th.items()}
+
+
 # ----------------------------------------------------------------- card
 
 
@@ -221,13 +306,18 @@ def card_line():
 def time_ms(fn, reps=30):
     """Median device time of ``fn`` in ms (CUDA events).  Before each launch
     a 64 MB buffer is read, which leaves the 50 MB L2 cache holding clean
-    lines of something else: the input comes from device memory."""
+    lines of something else: the input comes from device memory.  Then the
+    card sleeps ~1 ms while the host enqueues the events and ``fn``'s
+    launches, so the events bracket device work, not the host's enqueueing
+    (a plain version that enqueues for longer than that is timed with its
+    host time included)."""
     flush = torch.ones(16 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.sum()
+        torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -241,7 +331,7 @@ def _max_err(got, want):
     """max |got - want| over entries, with equal infinities counting 0."""
     same_inf = torch.isinf(want) & (got == want)
     if not bool((torch.isinf(got) == torch.isinf(want)).all()):
-        raise AssertionError("K1: infinities differ from the plain version")
+        raise AssertionError("a kernel's infinities differ from its plain version's")
     return float(torch.where(same_inf, 0.0, (got - want).abs()).max())
 
 
@@ -334,7 +424,45 @@ def check_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=1
         f"max|dU|={float((u32 - u64).abs().max()):.3e}, grad rel err={rel:.3e}")
 
 
-def main_path(args, gen):
+def run_nuts(model, args, init, label):
+    """A 16-chain dense-mass NUTS run (depth 6) of ``model`` from ``init``;
+    checks that every site's samples are finite and prints the run's
+    summary.  Returns the MCMC object."""
+    dev, dtype = torch.device("cuda"), torch.float32
+    with phase(f"NUTS on the {label} route: {args.warmup} warmup + {args.samples} samples, {N_CHAINS} chains, "
+               f"dense mass, depth {MAX_TREE_DEPTH}"):
+        mcmc = MCMC(
+            NUTS(model, dense_mass=True, max_tree_depth=MAX_TREE_DEPTH),
+            num_warmup=args.warmup, num_samples=args.samples, num_chains=N_CHAINS, device=dev, dtype=dtype,
+        )
+        mcmc.run(args.seed, init_params={k: v.to(dev, dtype) for k, v in init.items()})
+        torch.cuda.synchronize()
+    samples = mcmc.get_samples(group_by_chain=True)
+    extra = mcmc.get_extra_fields()
+    if len(samples) != 15:
+        raise AssertionError(f"{label} route: {len(samples)} sample sites, want 15")
+    for k, v in samples.items():
+        if tuple(v.shape) != (N_CHAINS, args.samples) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label} route, site {k}: samples of shape {tuple(v.shape)} not finite")
+    ess = {k: effective_sample_size(v) for k, v in samples.items()}
+    rhat = {k: split_rhat(v) for k, v in samples.items()}
+    log(
+        f"  timings: init {mcmc.timings['init']:.2f} s, warmup {mcmc.timings.get('warmup', 0.0):.2f} s, "
+        f"sampling {mcmc.timings['sample']:.2f} s"
+    )
+    log(
+        f"  mean tree depth {float(extra['tree_depth'].double().mean()):.2f}, "
+        f"divergences {int(extra['diverging'].sum())}, mean accept {float(extra['accept_prob'].mean()):.3f}, "
+        f"min ESS {min(ess.values()):.1f}, max split-Rhat {max(rhat.values()):.3f}, "
+        f"leapfrogs in sampling {int(extra['num_steps'].sum())}"
+    )
+    log("  posterior means: " + ", ".join(f"{k}={float(v.double().mean()):.3f}" for k, v in sorted(samples.items())))
+    return mcmc
+
+
+def flat_route(args, gen):
+    """The flat route (the default): catalog, reference check, potential and
+    gradient, NUTS.  Returns ``(K1 launches, catalog, init, potential, z0)``."""
     dev, dtype = torch.device("cuda"), torch.float32
     with phase("catalog"):
         pedict, injdict, constants = make_catalog(args.seed)
@@ -363,37 +491,217 @@ def main_path(args, gen):
         if not bool((pe.abs() < 1e30).all()):
             raise AssertionError("fiducial starts sit on a likelihood wall")
         log(f"  potential range [{float(pe.min()):.3f}, {float(pe.max()):.3f}], |grad| max {float(grad.abs().max()):.3e}")
-    with phase(f"NUTS {args.warmup} warmup + {args.samples} samples, {N_CHAINS} chains, dense mass, depth {MAX_TREE_DEPTH}"):
-        mcmc = MCMC(
-            NUTS(model, dense_mass=True, max_tree_depth=MAX_TREE_DEPTH),
-            num_warmup=args.warmup, num_samples=args.samples, num_chains=N_CHAINS, device=dev, dtype=dtype,
-        )
-        mcmc.run(args.seed, init_params={k: v.to(dev, dtype) for k, v in init.items()})
-        torch.cuda.synchronize()
+    run_nuts(model, args, init, "flat")
     launches = DLSE_KERNEL.launches
     if launches == 0:
-        raise AssertionError("K1 was not launched on the main path")
+        raise AssertionError("K1 was not launched on the flat route")
+    log(f"  K1 launches on the flat route: {launches}")
+    return launches, (pedict, injdict, constants, z_model), init, potential, z0
 
-    samples = mcmc.get_samples(group_by_chain=True)
-    extra = mcmc.get_extra_fields()
-    for k, v in samples.items():
-        if tuple(v.shape) != (N_CHAINS, args.samples) or not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"site {k}: samples of shape {tuple(v.shape)} not finite")
-    ess = {k: effective_sample_size(v) for k, v in samples.items()}
-    rhat = {k: split_rhat(v) for k, v in samples.items()}
-    n_grad = int(extra["num_steps"].sum())
-    log(
-        f"  timings: init {mcmc.timings['init']:.2f} s, warmup {mcmc.timings.get('warmup', 0.0):.2f} s, "
-        f"sampling {mcmc.timings['sample']:.2f} s"
-    )
-    log(
-        f"  mean tree depth {float(extra['tree_depth'].double().mean()):.2f}, "
-        f"divergences {int(extra['diverging'].sum())}, mean accept {float(extra['accept_prob'].mean()):.3f}, "
-        f"min ESS {min(ess.values()):.1f}, max split-Rhat {max(rhat.values()):.3f}, "
-        f"leapfrogs in sampling {n_grad}, K1 launches {launches}"
-    )
-    log("  posterior means: " + ", ".join(f"{k}={float(v.double().mean()):.3f}" for k, v in sorted(samples.items())))
-    return launches
+
+# ----------------------------------------------------------------- K2
+
+
+def k2_theta(init, z_model):
+    """The bench chain's hyperparameters (``streamed.THETA``) at the
+    constrained starts ``init``, float64 on the card."""
+    th = {k: init[k].to("cuda", torch.float64) for k in ("alpha", "beta", "mu_peak", "sig_peak", "lambda_m",
+                                                      "lambda_ct1", "lambda_ct2", "sig_ct1", "sig_ct2", "lamb")}
+    th["alpha_a1"], th["beta_a1"] = beta_ab(init["mu_a1"].cuda(), init["var_a1"].cuda())
+    th["alpha_a2"], th["beta_a2"] = beta_ab(init["mu_a2"].cuda(), init["var_a2"].cuda())
+    th["z_lognorm"] = torch.log(z_model.normalization(th["lamb"].float())).double()
+    return th
+
+
+def _rel_err(got, want):
+    """Per-chain relative error by norm of ``(C, n)`` gradients."""
+    return (got.double() - want).norm(dim=1) / want.norm(dim=1)
+
+
+def _k2_pair(bank, P64, P32, gen, label):
+    """K2's forward and backward kernels (float64 and float32) against the
+    float64 plain version on one bank, each held to its limit: float64
+    1e-10 absolute on lse and 1e-10 relative (norm, per chain) on dP,
+    float32 1e-4 on both.  Returns the float32 errors."""
+    c64, flags = bank.columns(torch.float64, "cuda")
+    c32, _ = bank.columns(torch.float32, "cuda")
+    plain = streamed._streamed_fwd_torch(c64, flags, P64)
+    k64 = streamed.streamed_fwd_cuda(c64, flags, P64)
+    k32 = streamed.streamed_fwd_cuda(c32, flags, P32)
+    l1, l2 = (torch.where(torch.isfinite(v), v, 0.0) for v in plain)
+    C, rows = l1.shape
+    g1 = torch.where(torch.isfinite(plain[0]), torch.rand(C, rows, generator=gen, device="cuda", dtype=torch.float64), 0.0)
+    g2 = torch.where(torch.isfinite(plain[1]), torch.rand(C, rows, generator=gen, device="cuda", dtype=torch.float64) - 0.5, 0.0)
+    d_plain = streamed._streamed_bwd_torch(c64, flags, P64, g1, g2, l1, l2)
+    d64 = streamed.streamed_bwd_cuda(c64, flags, P64, g1, g2, l1, l2)
+    lo = [v.float() for v in (g1, g2, l1, l2)]
+    d32 = streamed.streamed_bwd_cuda(c32, flags, P32, *lo)
+    torch.cuda.synchronize()
+    e64 = max(_max_err(a, b) for a, b in zip(k64, plain))
+    e32 = max(_max_err(a.double(), b) for a, b in zip(k32, plain))
+    r64, r32 = float(_rel_err(d64, d_plain).max()), float(_rel_err(d32, d_plain).max())
+    d32_abs = float((d32.double() - d_plain).abs().max())
+    if not (bool(torch.isfinite(d64).all()) and bool(torch.isfinite(d32).all())):
+        raise AssertionError(f"K2 {label}: gradient not finite")
+    log(f"  K2 {label}: f64 lse max_abs_err={e64:.3e} dP rel_err={r64:.3e}; "
+        f"f32 vs f64 plain lse max_abs_err={e32:.3e} dP rel_err={r32:.3e} (max abs {d32_abs:.3e})")
+    if not (e64 <= 1e-10 and r64 <= 1e-10 and e32 <= 1e-4 and r32 <= 1e-4):
+        raise AssertionError(f"K2 {label}: error above its limit")
+    return e32, d32_abs, r32
+
+
+def _k2_bound_ms(flags, C, direction):
+    """The least time of one K2 launch on this bank: the larger of the
+    bank bytes over the memory rate, the transcendental calls over the
+    special-function rate and the other operations over the float32 rate,
+    counting the samples in support (the kernels skip the rest)."""
+    n_all = flags.numel()
+    n_live = int(((flags & streamed.F_SUPPORT) == streamed.F_SUPPORT).sum())
+    bytes_ms = n_all * (streamed.N_COL * 4 + 4) / HBM_BYTES_PER_S * 1e3
+    sfu, ops = (K2_FWD_SFU, K2_FWD_OPS) if direction == "fwd" else (K2_BWD_SFU, K2_BWD_OPS)
+    ops_ms = max(C * n_live * sfu / SFU_PER_S, C * n_live * ops / F32_FLOP_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def check_k2(model_s, th, gen):
+    """K2 against its plain version at full width (both banks, C = 1 and
+    C = 16, float64 and float32) and on the edge bank; float32 kernel and
+    plain times at C = 16.  Returns the kernels-line numbers."""
+    P64 = streamed.chain_params(th, MMIN, MMAX).contiguous()
+    P32 = P64.float()
+    out = {"fwd": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0},
+           "bwd": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_rel_err": 0.0}}
+    for name, bank in (("PE", model_s.pe_op), ("injections", model_s.inj_op)):
+        for C in (1, N_CHAINS):
+            e32, d_abs, r32 = _k2_pair(bank, P64[:C].contiguous(), P32[:C].contiguous(), gen,
+                                       f"{name} {bank.shape} C={C}")
+            out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], e32)
+            out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], d_abs)
+            out["bwd"]["max_rel_err"] = max(out["bwd"]["max_rel_err"], r32)
+        # float32 times at the main path's C
+        cols, flags = bank.columns(torch.float32, "cuda")
+        l1, l2 = streamed.streamed_fwd_cuda(cols, flags, P32)
+        g1, g2 = torch.ones_like(l1), torch.full_like(l2, -0.5)
+        times = {
+            "fwd": (lambda: streamed.streamed_fwd_cuda(cols, flags, P32),
+                    lambda: streamed._streamed_fwd_torch(cols, flags, P32)),
+            "bwd": (lambda: streamed.streamed_bwd_cuda(cols, flags, P32, g1, g2, l1, l2),
+                    lambda: streamed._streamed_bwd_torch(cols, flags, P32, g1, g2, l1, l2)),
+        }
+        for d, (kern, plain) in times.items():
+            k_ms, p_ms = time_ms(kern), time_ms(plain)
+            b_ms, b_by = _k2_bound_ms(flags, N_CHAINS, d)
+            out[d]["ms"] += k_ms
+            out[d]["plain_ms"] += p_ms
+            out[d]["bound_ms"] += b_ms
+            out[d]["bound_by"] = b_by
+            log(f"  K2 {d} {name} {bank.shape} C={N_CHAINS} f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}; {b_ms / k_ms:.1%} of the bound)")
+
+    # every branch: beta on both sides of -1 and at -1, out-of-support
+    # samples, a = 0 and 1, an all--inf row, a row on the redshift floor,
+    # padded lanes; each dtype against its own plain version (the floor is
+    # the dtype's own)
+    banks, valid, zmax = k2_edge_case(seed=7)
+    edge = streamed.StreamedBank(banks, MMIN, MMAX, zmax, valid=valid)
+    P = streamed.chain_params(k2_edge_theta(4, torch.float64, "cuda"), MMIN, MMAX).contiguous()
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        cols, flags = edge.columns(dtype, "cuda")
+        Pd = P.to(dtype)
+        k = streamed.streamed_fwd_cuda(cols, flags, Pd)
+        p = streamed._streamed_fwd_torch(cols, flags, Pd)
+        err = max(_max_err(a, b) for a, b in zip(k, p))
+        l1, l2 = (torch.where(torch.isfinite(v), v, 0.0) for v in p)
+        g1, g2 = torch.isfinite(p[0]).to(dtype), -0.5 * torch.isfinite(p[1]).to(dtype)
+        d_k = streamed.streamed_bwd_cuda(cols, flags, Pd, g1, g2, l1, l2)
+        d_p = streamed._streamed_bwd_torch(cols, flags, Pd, g1, g2, l1, l2)
+        rel = float(_rel_err(d_k, d_p.double()).max())
+        log(f"  K2 edge bank {edge.shape} C=4 {str(dtype)[6:]} vs its plain version: lse max_abs_err={err:.3e} "
+            f"dP rel_err={rel:.3e}")
+        if not (err <= tol and rel <= tol and bool(torch.isfinite(d_k).all())):
+            raise AssertionError(f"K2 edge bank, {dtype}: error above {tol}")
+    return out
+
+
+def streamed_route(args, model_s, init, flat_potential, z0):
+    """The streamed route: potential and gradient against the flat route at
+    the same z, both timed, then NUTS with the launch counts zeroed just
+    before and read just after.  Returns ``(K2 forward launches, K2
+    backward launches, flat ms, streamed ms)``."""
+    dev, dtype = torch.device("cuda"), torch.float32
+    potential = ModelPotential(model_s, device=dev, dtype=dtype)
+    with phase(f"streamed route: potential + gradient against the flat route, {N_CHAINS} chains"):
+        u_s, g_s = potential.value_and_grad(z0)
+        u_f, g_f = flat_potential.value_and_grad(z0)
+        torch.cuda.synchronize()
+        du = float(((u_s - u_f).abs() / u_f.abs()).max())
+        dg = float(_rel_err(g_s, g_f.double()).max())
+        log(f"  streamed vs flat: potential max rel diff {du:.3e}, gradient max rel err (norm, per chain) {dg:.3e}")
+        if not (bool(torch.isfinite(u_s).all()) and bool(torch.isfinite(g_s).all()) and du <= 1e-5 and dg <= 1e-3):
+            raise AssertionError("the streamed route disagrees with the flat route")
+        times = {"flat": [], "streamed": []}
+        for _ in range(10):  # in turns, so that both routes see the same card state
+            for name, pot in (("flat", flat_potential), ("streamed", potential)):
+                times[name].append(call_ms(lambda: pot.value_and_grad(z0)))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"  one batched potential + gradient: flat {ms['flat']:.3f} ms, streamed {ms['streamed']:.3f} ms "
+            "(CUDA events around each call, median of 10 calls each, in turns)")
+
+    DLSE_KERNEL.launches = 0
+    STREAMED_FWD_KERNEL.launches = 0
+    STREAMED_BWD_KERNEL.launches = 0
+    run_nuts(model_s, args, init, "streamed")
+    n_fwd, n_bwd, n_k1 = STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, DLSE_KERNEL.launches
+    log(f"  launches on the streamed route: K2 forward {n_fwd}, K2 backward {n_bwd}, K1 {n_k1}")
+    if n_fwd == 0 or n_bwd == 0:
+        raise AssertionError("K2 was not launched on the streamed route")
+    if n_k1 != 0:
+        raise AssertionError("K1 ran on the streamed route, whose tail is plain torch")
+    with phase("profile of one potential + gradient per route"):
+        profile_routes({"flat": flat_potential, "streamed": potential}, z0)
+    return n_fwd, n_bwd, ms["flat"], ms["streamed"]
+
+
+def profile_routes(potentials, z0, calls=5):
+    """``torch.profiler`` over ``calls`` potential + gradient evaluations of
+    each route; prints per call the host wall time, the
+    device time, the number of device operations and the device's busy
+    share, and the five device operations that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile
+
+    for name, pot in potentials.items():
+        pot.value_and_grad(z0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                pot.value_and_grad(z0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.device_time_total for e in ops) / 1e3 / calls
+        by_name = {}
+        for e in ops:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / calls
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        log(f"  profile, {name} route, per potential + gradient: wall {wall_ms:.3f} ms (host clock, profiler on), "
+            f"device {dev_ms:.3f} ms in {len(ops) / calls:.0f} device operations, busy share {dev_ms / wall_ms:.1%}")
+        for op, ms in top:
+            log(f"    {ms:.4f} ms  {op[:100]}")
+
+
+def call_ms(fn):
+    """Time of one call of ``fn`` in ms, CUDA events around it (host work
+    between the launches included: the routes are eager)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def main(argv=None):
@@ -414,27 +722,43 @@ def main(argv=None):
         card = card_line()
         log(f"  card: {card}")
     with phase("build"):
-        secs = build_all([DLSE_KERNEL])
-        log(f"  K1 built with nvcc for sm_90a in {secs:.2f} s")
+        secs = build_all([DLSE_KERNEL, STREAMED_FWD_KERNEL, STREAMED_BWD_KERNEL])
+        log(f"  K1 (dlse.cu) and K2 (streamed.cu) built with nvcc for sm_90a, in parallel, in {secs:.2f} s")
     with phase("K1 against its plain version"):
         k1 = check_k1(gen)
-    launches = main_path(args, gen)
+    k1_launches, (pedict, injdict, constants, z_model), init, flat_potential, z0 = flat_route(args, gen)
+
+    with phase("streamed model build"):
+        model_s = BenchModel(pedict, injdict, constants, z_model, device="cuda", dtype=torch.float32, streamed=True)
+        torch.cuda.synchronize()
+    with phase("K2 against its plain version"):
+        k2 = check_k2(model_s, k2_theta(init, z_model), gen)
+    n_fwd, n_bwd, flat_ms, streamed_ms = streamed_route(args, model_s, init, flat_potential, z0)
 
     pe, inj = k1["pe"], k1["inj"]
-    kernels = {"kernels": [{
-        "name": "K1 double_logsumexp",
-        "route": "cuda",
-        "source": os.path.relpath(DLSE_KERNEL.source_path, HERE),
-        "replaces": DLSE_KERNEL.replaces,
-        "launches": launches,
-        "max_abs_err": max(pe["max_abs_err"], inj["max_abs_err"]),
-        # one gradient's two calls: the PE bank and the injection row
-        "ms": pe["ms"] + inj["ms"],
-        "plain_ms": pe["plain_ms"] + inj["plain_ms"],
-        "bound_ms": pe["bound_ms"] + inj["bound_ms"],
-        "bound_by": pe["bound_by"],
-        "library_ms": pe["library_ms"] + inj["library_ms"],
-    }]}
+    k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
+                 "library_ms": None, "flat_route_grad_ms": flat_ms, "streamed_route_grad_ms": streamed_ms}
+    kernels = {"kernels": [
+        {
+            "name": "K1 double_logsumexp",
+            "route": "cuda",
+            "source": os.path.relpath(DLSE_KERNEL.source_path, HERE),
+            "replaces": DLSE_KERNEL.replaces,
+            "launches": k1_launches,
+            "max_abs_err": max(pe["max_abs_err"], inj["max_abs_err"]),
+            # one gradient's two calls: the PE bank and the injection row
+            "ms": pe["ms"] + inj["ms"],
+            "plain_ms": pe["plain_ms"] + inj["plain_ms"],
+            "bound_ms": pe["bound_ms"] + inj["bound_ms"],
+            "bound_by": pe["bound_by"],
+            "library_ms": pe["library_ms"] + inj["library_ms"],
+        },
+        # one gradient's launches: the PE bank and the injection rows
+        dict(k2_common, name="K2 streamed forward", replaces=STREAMED_FWD_KERNEL.replaces,
+             also_replaces="gwinferno_tpu/ops/streamed.py:115", launches=n_fwd, **k2["fwd"]),
+        dict(k2_common, name="K2 streamed backward", replaces=STREAMED_BWD_KERNEL.replaces,
+             also_replaces="gwinferno_tpu/ops/streamed.py:134", launches=n_bwd, **k2["bwd"]),
+    ]}
     log(card)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,7 +119,9 @@ def build_all(kernels):
     """Build every kernel's library, all ``nvcc`` processes started together;
     returns the wall seconds."""
     t0 = time.perf_counter()
-    jobs = [job for job in (k.start_build() for k in kernels) if job is not None]
+    # kernels that share a source share one library: build it once
+    first = {k.library_path(): k for k in reversed(kernels)}
+    jobs = [job for job in (k.start_build() for k in first.values()) if job is not None]
     try:
         for job in jobs:
             Kernel.finish_build(job)

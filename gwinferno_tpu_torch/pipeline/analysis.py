@@ -65,6 +65,10 @@ def hierarchical_likelihood(
     marginalize_selection=False,
     min_neff_cut=True,
     max_variance_cut=False,
+    categorical=False,
+    posterior_predictive_check=False,
+    pe_summaries=None,
+    inj_summaries=None,
 ):
     """Importance-sampled hierarchical likelihood with rate reconstruction,
     the ``min_neff`` / ``max_variance`` walls and the deterministic
@@ -73,6 +77,12 @@ def hierarchical_likelihood(
     ``pe_weights`` ``(C, N_events, N_samples)`` and ``inj_weights``
     ``(C, N_found)`` are log-weights.  Returns the reconstructed ``rate``
     ``(C,)`` or None.
+
+    Summaries seam: ``pe_summaries=(logBFs, log_n_effs, n_samples)`` and
+    ``inj_summaries=(log_mu, log_n_eff_inj)`` take reductions computed
+    upstream (the streamed op, ``ops/streamed.py``) in place of the weight
+    banks, which may then be None.  Categorical subpopulations and the
+    posterior-predictive draws are not ported; they raise.
     """
     if max_variance_cut and (marginalize_selection or min_neff_cut):
         raise ValueError(
@@ -81,10 +91,24 @@ def hierarchical_likelihood(
             f"marginalize_selection = {marginalize_selection} "
             f"and min_neff_cut = {min_neff_cut}",
         )
-    floor = torch.finfo(pe_weights.dtype).min  # jnp.nan_to_num(-inf)
+    if pe_summaries is not None and categorical:
+        raise ValueError("pe_summaries (the fused seam) cannot be combined with categorical subpopulations")
+    if (pe_summaries is not None or inj_summaries is not None) and posterior_predictive_check:
+        raise ValueError("posterior_predictive_check needs the raw weight banks; disable it on the fused path")
+    if categorical or posterior_predictive_check:
+        raise NotImplementedError("categorical subpopulations and posterior-predictive draws are not ported")
 
-    logBFs, logn_effs, variances = per_event_log_bayes_factors(pe_weights)
-    log_det_eff, logn_eff_inj, variance = detection_efficiency(inj_weights, total_inj)
+    if pe_summaries is not None:
+        logBFs, logn_effs, n_samples = pe_summaries
+        variances = torch.exp(-logn_effs) - 1.0 / n_samples
+    else:
+        logBFs, logn_effs, variances = per_event_log_bayes_factors(pe_weights)
+    if inj_summaries is not None:
+        log_det_eff, logn_eff_inj = inj_summaries
+        variance = torch.exp(-logn_eff_inj) - 1.0 / total_inj
+    else:
+        log_det_eff, logn_eff_inj, variance = detection_efficiency(inj_weights, total_inj)
+    floor = torch.finfo(logBFs.dtype).min  # jnp.nan_to_num(-inf)
     ppl.deterministic("log_nEff_inj", logn_eff_inj)
     ppl.deterministic("log_nEffs", logn_effs)
     ppl.deterministic("logBFs", logBFs)

@@ -1,6 +1,6 @@
 """The bench problem: the 14-hyperparameter powerlaw+peak model with spins.
 
-Counterpart of ``bench.py::make_model`` (its flat path): powerlaw+peak
+Counterpart of ``bench.py::make_model`` (its flat and streamed routes): powerlaw+peak
 ``(m1, q)``, independent beta spin magnitudes parameterized by ``(mu, var)``,
 independent isotropic+aligned tilt mixtures and a powerlaw-in-``(1+z)``
 redshift evolution, fed to :func:`hierarchical_likelihood` with
@@ -11,6 +11,8 @@ parameter and held on the device, so each gradient evaluates the log-weight
 chain once over ``N_events * N_samples + N_found`` samples for all chains
 ``(C, N)``.  The data-only terms (``log prior``, ``log dVc/dz``,
 ``log(1+z)`` and the ``z <= zmax`` mask) are computed once at construction.
+The streamed route (``streamed=True``) keeps the two banks apart and hands
+them to K2 instead.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from ..models.parametric.parametric import log_independent_spin_magnitude_beta_d
 from ..models.parametric.parametric import log_independent_spin_tilt
 from ..models.parametric.parametric import log_plpeak_primary_ratio_pdf
 from .. import ppl
+from ..ops.streamed import StreamedBank
+from ..ops.streamed import reshape_bank_rows
+from ..ops.streamed import streamed_summaries
 from ..ppl import distributions as dist
 from .analysis import hierarchical_likelihood
 
@@ -30,6 +35,7 @@ __all__ = ["BenchModel", "FIDUCIAL_INIT", "TRUTH", "INIT_JITTER", "jittered_init
 
 MMIN, MMAX = 5.0, 100.0
 PARAMS7 = ("mass_1", "mass_ratio", "redshift", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2")
+INJ_ROW_COLS = 8192  # the streamed route's injection rows (bench.py's reshape_bank_rows)
 
 FIDUCIAL_INIT = {
     "alpha": -2.35, "beta": 1.0, "mu_peak": 35.0, "sig_peak": 5.0, "lambda_m": 0.25,
@@ -74,15 +80,26 @@ def jittered_init(num_chains, generator, dtype=torch.float32):
 
 class BenchModel(torch.nn.Module):
     """The bench model as a PPL model: calling it declares the 15 sample
-    sites and the likelihood factor.  Sites carry a leading chain axis."""
+    sites and the likelihood factor.  Sites carry a leading chain axis.
 
-    def __init__(self, pedict, injdict, constants, z_model, device=None, dtype=torch.float32):
+    ``streamed=True`` takes the streamed route of ``bench.py``
+    (``BENCH_STREAMED=1``): the whole log-weight chain and its paired
+    reduction run in K2 (``ops/streamed.py``) over the PE bank ``(E, S)``
+    and the injection bank reshaped to rows of 8192, and the reductions feed
+    the likelihood's summaries seam.  The default is the flat route.
+    """
+
+    def __init__(self, pedict, injdict, constants, z_model, device=None, dtype=torch.float32, streamed=False):
         super().__init__()
         dev = resolve_device(device)
         E, S = np.shape(pedict["mass_1"])
         self.n_events, self.n_samples = int(E), int(S)
         self.constants = dict(constants)
         self.z_model = z_model
+        self.streamed = bool(streamed)
+        if self.streamed:
+            self._build_streamed(pedict, injdict, z_model, dev, dtype)
+            return
 
         def cat(name):
             return np.concatenate([np.asarray(pedict[name], np.float64).reshape(-1), np.asarray(injdict[name], np.float64)])
@@ -94,6 +111,24 @@ class BenchModel(torch.nn.Module):
         for k, v in bank.items():
             self.register_buffer(k, torch.as_tensor(v, dtype=dtype, device=dev))
         self.register_buffer("z_ok", torch.as_tensor(bank["redshift"] <= z_model.zmax, device=dev))
+
+    def _build_streamed(self, pedict, injdict, z_model, dev, dtype):
+        """The two banks of the streamed route, their data-only columns made
+        once on ``dev`` in ``dtype``."""
+
+        def with_logs(d, dvdz):
+            out = {k: np.asarray(d[k], np.float64) for k in PARAMS7}
+            out["log_prior"] = np.log(np.asarray(d["prior"], np.float64))
+            out["log_dvdz"] = np.log(np.asarray(dvdz, np.float64))
+            out["log1pz"] = np.log1p(out["redshift"])
+            return out
+
+        pe2d = with_logs(pedict, z_model.dVdzs[1])
+        inj_rows, inj_valid = reshape_bank_rows(with_logs(injdict, z_model.dVdzs[0]), cols=INJ_ROW_COLS)
+        self.pe_op = StreamedBank(pe2d, MMIN, MMAX, z_model.zmax)
+        self.inj_op = StreamedBank(inj_rows, MMIN, MMAX, z_model.zmax, valid=inj_valid)
+        for op in (self.pe_op, self.inj_op):
+            op.columns(dtype, dev)
 
     def log_weight(self, th):
         """Per-sample log-weights ``(C, N)`` of the population ``th`` (each
@@ -139,18 +174,27 @@ class BenchModel(torch.nn.Module):
         th["alpha_a2"], th["beta_a2"] = beta_ab(th["mu_a2"], th["var_a2"])
         z_lognorm = torch.log(self.z_model.normalization(th["lamb"]))
         th["z_lognorm"] = z_lognorm
-
-        C = th["lamb"].shape[0]
-        logw = self.log_weight({k: v[:, None] for k, v in th.items()})
-        n_pe = self.n_events * self.n_samples
+        if self.streamed:
+            pe_w = inj_w = None
+            pe_sum, inj_sum = streamed_summaries(
+                self.pe_op, self.inj_op, th, self.n_samples, self.constants["total_inj"]
+            )
+        else:
+            C = th["lamb"].shape[0]
+            logw = self.log_weight({k: v[:, None] for k, v in th.items()})
+            n_pe = self.n_events * self.n_samples
+            pe_w, inj_w = logw[:, :n_pe].reshape(C, self.n_events, self.n_samples), logw[:, n_pe:]
+            pe_sum = inj_sum = None
         c = self.constants
         hierarchical_likelihood(
-            logw[:, :n_pe].reshape(C, self.n_events, self.n_samples),
-            logw[:, n_pe:],
+            pe_w,
+            inj_w,
             total_inj=c["total_inj"],
             Nobs=c["nObs"],
             Tobs=c["obs_time"],
             surveyed_hypervolume=torch.exp(z_lognorm),
             marginalize_selection=False,
             min_neff_cut=True,
+            pe_summaries=pe_sum,
+            inj_summaries=inj_sum,
         )

@@ -135,6 +135,81 @@ def test_k1_kernel_matches_plain_version_on_the_card():
         assert torch.isfinite(grad).all()
 
 
+def test_streamed_op_on_cpu_uses_the_plain_versions(monkeypatch):
+    import chip_smoke
+    from gwinferno_tpu_torch.ops import streamed
+
+    def no_kernel(*args):
+        raise AssertionError("the CUDA kernels must not run for CPU tensors")
+
+    monkeypatch.setattr(streamed, "streamed_fwd_cuda", no_kernel)
+    monkeypatch.setattr(streamed, "streamed_bwd_cuda", no_kernel)
+    before = (streamed.STREAMED_FWD_KERNEL.launches, streamed.STREAMED_BWD_KERNEL.launches)
+    banks, valid, zmax = chip_smoke.k2_edge_case(seed=1, rows=4, n_samples=60)
+    bank = streamed.StreamedBank(banks, 5.0, 100.0, zmax, valid=valid)
+    th = {k: v.requires_grad_(True) for k, v in chip_smoke.k2_edge_theta(2).items()}
+    l1, l2 = bank(th)
+    live = torch.isfinite(l1) & torch.isfinite(l2)
+    grads = torch.autograd.grad(l1[live].sum() + l2[live].sum(), list(th.values()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert (streamed.STREAMED_FWD_KERNEL.launches, streamed.STREAMED_BWD_KERNEL.launches) == before
+
+
+def test_streamed_cuda_wrappers_reject_cpu_tensors():
+    from gwinferno_tpu_torch.ops.streamed import N_COL, P_STRIDE, streamed_bwd_cuda, streamed_fwd_cuda
+
+    cols, flags, P = torch.zeros(N_COL, 2, 8), torch.zeros(2, 8, dtype=torch.int32), torch.zeros(1, P_STRIDE)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        streamed_fwd_cuda(cols, flags, P)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        streamed_bwd_cuda(cols, flags, P, *[torch.zeros(1, 2)] * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_chains", [1, 3])
+def test_k2_kernels_match_plain_versions_on_the_card(num_chains):
+    """K2's forward and backward kernels against their plain versions on a
+    small bank that drives every branch (both dtypes; f32 against the f32
+    plain version, since the redshift floor is the dtype's own), then the
+    whole op, gradient included, on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke
+    from gwinferno_tpu_torch.ops import streamed
+
+    banks, valid, zmax = chip_smoke.k2_edge_case(seed=2)
+    bank = streamed.StreamedBank(banks, 5.0, 100.0, zmax, valid=valid)
+    tol = {torch.float32: 1e-4, torch.float64: 1e-10}
+    for dtype in (torch.float32, torch.float64):
+        cols, flags = bank.columns(dtype, "cuda")
+        P = streamed.chain_params(chip_smoke.k2_edge_theta(num_chains, dtype, "cuda"), 5.0, 100.0).contiguous()
+        before = (streamed.STREAMED_FWD_KERNEL.launches, streamed.STREAMED_BWD_KERNEL.launches)
+        got = streamed.streamed_fwd_cuda(cols, flags, P)
+        want = streamed._streamed_fwd_torch(cols, flags, P)
+        for a, b in zip(got, want):
+            assert torch.equal(torch.isinf(a), torch.isinf(b))
+            fin = torch.isfinite(b)
+            assert float((a[fin] - b[fin]).abs().max()) <= tol[dtype]
+        l1, l2 = (torch.where(torch.isfinite(v), v, 0.0) for v in want)
+        g1 = torch.where(torch.isfinite(want[0]), torch.rand(l1.shape, device="cuda", dtype=dtype), 0.0)
+        g2 = torch.where(torch.isfinite(want[1]), torch.rand(l2.shape, device="cuda", dtype=dtype) - 0.5, 0.0)
+        dP = streamed.streamed_bwd_cuda(cols, flags, P, g1, g2, l1, l2)
+        dP_plain = streamed._streamed_bwd_torch(cols, flags, P, g1, g2, l1, l2)
+        rel = (dP - dP_plain).norm(dim=1) / dP_plain.norm(dim=1)
+        assert float(rel.max()) <= tol[dtype], rel
+        assert (streamed.STREAMED_FWD_KERNEL.launches, streamed.STREAMED_BWD_KERNEL.launches) == (
+            before[0] + 1, before[1] + 1,
+        )
+
+    grads = []
+    for dev in ("cuda", "cpu"):
+        th = {k: v.requires_grad_(True) for k, v in chip_smoke.k2_edge_theta(num_chains, torch.float64, dev).items()}
+        l1, l2 = bank(th)
+        live = torch.isfinite(l1) & torch.isfinite(l2)
+        grads.append(torch.stack(torch.autograd.grad(l1[live].sum() + 0.5 * l2[live].sum(), list(th.values()))).cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-10, atol=1e-10)
+
+
 def test_chip_smoke_fails_without_cuda_and_prints_nothing():
     code = "import sys, torch; torch.cuda.is_available = lambda: False; sys.argv = ['chip_smoke.py']; import chip_smoke; chip_smoke.main()"
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
