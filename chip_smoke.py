@@ -29,13 +29,24 @@ and with its wall time as it ends:
    route's at the same point, both timed, then the same NUTS run on it, then
    a ``torch.profiler`` trace of both routes' potential + gradient (device
    time, device operations, busy share);
-7. the kernels line (one JSON object), then the contract line
+7. the B-spline production model (knots m1 50, q 30, a 16, tilt 16, z 20;
+   mmin 3, mmax 100; whitened coefficient priors) on the same catalog: both
+   routes built (build seconds, design bytes on the card), the fused route
+   (K3) against the unfused one (K1) at the same 8 starts and both timed,
+   K3 (``ops/csrc/flw.cu``, the coefficient product with the double
+   logsumexp) against its plain version on the route's two banks for 1, 8
+   and 16 chains in float64 and float32 and on an edge bank, the fused
+   route against a float64 CPU evaluation on a slice of the catalog, then
+   an 8-chain NUTS run on the fused route through ``run_bspline_analysis``
+   (target 0.9, diagonal mass, depth 6);
+8. the kernels line (one JSON object), then the contract line
    ``{"ok": true, "device": {...}}``, last on stdout.
 
 Launch counts are set to 0 just before each route is driven (the flat
-route's gradients and NUTS run; the streamed route's NUTS run) and read just
-after: K1's from the flat route, K2's from the streamed route (where K1
-must not run).
+route's gradients and NUTS run; the streamed route's NUTS run; the B-spline
+route's ``run_bspline_analysis``) and read just after: K1's from the flat
+route, K2's from the streamed route (where K1 must not run), K3's from the
+B-spline route (where K1 must not run either).
 
 Any failure raises, with a traceback and a non-zero exit code; no phase
 catches its own failure.  Without CUDA the script exits non-zero before
@@ -52,6 +63,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -67,7 +79,9 @@ from gwinferno_tpu_torch.infer.diagnostics import effective_sample_size  # noqa:
 from gwinferno_tpu_torch.infer.diagnostics import split_rhat  # noqa: E402
 from gwinferno_tpu_torch.models.parametric.parametric import PowerlawRedshiftModel  # noqa: E402
 from gwinferno_tpu_torch.ops._build import build_all  # noqa: E402
+from gwinferno_tpu_torch.ops import fused  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import DLSE_KERNEL  # noqa: E402
+from gwinferno_tpu_torch.ops.fused import FLW_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import _dlse_torch  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import double_logsumexp  # noqa: E402
 from gwinferno_tpu_torch.ops import streamed  # noqa: E402
@@ -79,7 +93,13 @@ from gwinferno_tpu_torch.pipeline.bench_model import TRUTH  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import BenchModel  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import jittered_init  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import beta_ab  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bspline_model import COEF_SITES  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bspline_model import build_bspline_models  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bspline_model import model_from_args  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bspline_model import run_bspline_analysis  # noqa: E402
+from gwinferno_tpu_torch import ppl  # noqa: E402
 from gwinferno_tpu_torch.ppl import ModelPotential  # noqa: E402
+from gwinferno_tpu_torch.ppl.infer_util import find_valid_initial_params  # noqa: E402
 
 # the committed catalog's size and attributes (tests/data/pe_inj_synthetic.h5)
 N_EVENTS, N_SAMPLES, N_FOUND = 69, 8000, 46770
@@ -105,6 +125,13 @@ SFU_PER_S = 16 * 132 * 1.98e9
 # weight 2.
 K2_FWD_SFU, K2_BWD_SFU = 9, 17
 K2_FWD_OPS, K2_BWD_OPS = 60, 140
+
+# the B-spline production model (tools/run_bspline_production.py): knots per
+# block, mass range (pipeline/utils.py defaults), 8 chains, whitened
+# coefficient priors, target acceptance 0.9, diagonal mass
+BSPLINE_KNOTS = dict(m_nsplines=50, q_nsplines=30, a_nsplines=16, tilt_nsplines=16, z_nsplines=20)
+BSPLINE_MMIN, BSPLINE_MMAX = 3.0, 100.0
+BSPLINE_CHAINS = 8
 
 # synthetic search: proxy SNR ~ Mc_det^(5/6) / DL with a random projection
 D0_MPC = 1600.0
@@ -290,6 +317,27 @@ def k2_edge_theta(num_chains, dtype=torch.float64, device="cpu"):
         "lamb": 1.7 - 0.1 * c, "z_lognorm": 3.0 + 0.1 * c,
     }
     return {k: torch.as_tensor(np.array(np.broadcast_to(v, (num_chains,))), dtype=dtype, device=device) for k, v in th.items()}
+
+
+def k3_edge_case(seed, num_chains=4, n_events=4, n_samples=2300, n_rows=6):
+    """A small bank for K3, made from ``seed`` with numpy: ``(coefs (C, K),
+    design (K, E*S), nlp (E*S,), E, S)``, float64.
+
+    Design entries lie in [0, 1) as B-spline bases do; about one sample in
+    ten is masked (``nlp = -inf``); event 0's first 600 samples are masked,
+    so its leading tiles are empty (ROADMAP F3); event 2 is masked
+    entirely; ``S`` is a multiple of no tile size.
+    """
+    rng = np.random.default_rng(seed)
+    E, S = n_events, n_samples
+    coefs = rng.normal(0.0, 1.0, (num_chains, n_rows))
+    design = rng.uniform(0.0, 1.0, (n_rows, E * S))
+    nlp = rng.normal(-3.0, 1.0, E * S)
+    nlp[rng.uniform(size=E * S) < 0.1] = -np.inf
+    nlp2 = nlp.reshape(E, S)
+    nlp2[0, :600] = -np.inf
+    nlp2[2 % E] = -np.inf
+    return coefs, design, nlp, E, S
 
 
 # ----------------------------------------------------------------- card
@@ -704,6 +752,290 @@ def call_ms(fn):
     return start.elapsed_time(end)
 
 
+# ----------------------------------------------------------------- B-spline route (K3)
+
+
+def bspline_args(args):
+    """The production B-spline settings, as ``run_bspline_analysis`` reads
+    them, with the smoke's depth."""
+    return SimpleNamespace(
+        **BSPLINE_KNOTS, mmin=BSPLINE_MMIN, mmax=BSPLINE_MMAX, fused=True, reparam="whitened", a_tau=25, ct_tau=25,
+        target_accept=0.9, max_tree_depth=MAX_TREE_DEPTH, warmup=args.warmup, samples=args.samples,
+        chains=BSPLINE_CHAINS, thinning=1, rngkey=args.seed,
+    )
+
+
+def _design_bytes(models, fused_lik):
+    """Bytes of every design matrix on the card: each model's two banks and
+    normalization grid, the redshift grid, and the fused stack."""
+    tensors = [fused_lik.pe_design, fused_lik.inj_design, models["z"].pe_design_matrix,
+               models["z"].inj_design_matrix, models["z"].norm_design_matrix]
+    singles = [models["mass"].primary_model, models["mass"].ratio_model, models["mag"].primary_model,
+               models["mag"].secondary_model, models["tilt"].primary_model, models["tilt"].secondary_model]
+    for m in singles:
+        tensors += [m.pe_design_matrix, m.inj_design_matrix]
+        if m.interpolator.normalize:
+            tensors.append(m.interpolator._grid_bases_t)
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bspline_build(pedict, injdict, constants, bargs):
+    """Both routes' models at production knots on the card, float32; prints
+    the build seconds and the design bytes resident on the card."""
+    with phase(f"B-spline model build ({', '.join(f'{k[:-9]} {v}' for k, v in BSPLINE_KNOTS.items())} knots, "
+               "whitened), both routes"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models = build_bspline_models(pedict, injdict, bargs, device="cuda", dtype=torch.float32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        routes = {}
+        for fused_route in (True, False):
+            routes["fused" if fused_route else "unfused"] = model_from_args(
+                pedict, injdict, constants, list(pedict), models, SimpleNamespace(**{**vars(bargs), "fused": fused_route})
+            )
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fl = routes["fused"].fused_lik
+        log(f"  models {t1 - t0:.2f} s, fused stack {t2 - t1:.2f} s; design matrices on the card: "
+            f"{_design_bytes(models, fl) / 1e6:.1f} MB (fused stack PE {tuple(fl.pe_design.shape)} + injections "
+            f"{tuple(fl.inj_design.shape)}: {(fl.pe_design.numel() + fl.inj_design.numel()) * 4 / 1e6:.1f} MB; "
+            f"memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    return models, routes
+
+
+def _coef_values(model, potential, z):
+    """The stacked K3 coefficients ``(C, 165)`` of ``model`` at ``z``."""
+    with torch.no_grad(), ppl.trace() as tr, ppl.substitute(data=potential.constrain(z)):
+        model()
+    v = {k: tr.trace[k]["value"] for k in ("mass_cs", "q_cs", "a_cs", "tilt_cs", "z_cs", "lamb")}
+    z_cs = torch.cat([torch.zeros_like(v["z_cs"][:, :1]), v["z_cs"]], dim=1)
+    return model.fused_lik._coefs(v["mass_cs"], v["q_cs"], v["a_cs"], v["tilt_cs"], z_cs, v["lamb"])
+
+
+def bspline_routes(routes, gen):
+    """The fused and unfused routes' potential and gradient at the same 8
+    off-wall starts, held to each other, and each route's potential +
+    gradient time.  Returns ``(fused potential, starts, {route: ms})``."""
+    dev, dtype = torch.device("cuda"), torch.float32
+    pots = {k: ModelPotential(m, device=dev, dtype=dtype) for k, m in routes.items()}
+    with phase(f"B-spline routes: fused against unfused, {BSPLINE_CHAINS} chains"):
+        z0 = find_valid_initial_params(pots["fused"], BSPLINE_CHAINS, gen)
+        (u_f, g_f), (u_u, g_u) = (pots[k].value_and_grad(z0) for k in ("fused", "unfused"))
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (u_f, g_f, u_u, g_u)):
+            raise AssertionError("B-spline potential or gradient not finite at the starts")
+        if not bool((u_f.abs() < 1e30).all()):
+            raise AssertionError(f"B-spline starts sit on a likelihood wall: {u_f}")
+        du = float(((u_f.double() - u_u.double()).abs() / u_u.double().abs()).max())
+        dg = float(_rel_err(g_f, g_u.double()).max())
+        log(f"  fused vs unfused: potential max rel diff {du:.3e}, gradient max rel err (norm, per chain) {dg:.3e}; "
+            f"potential range [{float(u_f.min()):.3f}, {float(u_f.max()):.3f}]")
+        if not (du <= 1e-5 and dg <= 1e-3):
+            raise AssertionError("the fused and unfused B-spline routes disagree")
+        times = {k: [] for k in pots}
+        for _ in range(10):
+            for k, pot in pots.items():
+                times[k].append(call_ms(lambda: pot.value_and_grad(z0)))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"  one batched potential + gradient: fused {ms['fused']:.3f} ms, unfused {ms['unfused']:.3f} ms "
+            "(CUDA events around each call, median of 10 calls each, in turns)")
+    with phase("profile of one B-spline potential + gradient per route"):
+        profile_routes({f"B-spline {k}": p for k, p in pots.items()}, z0)
+    return pots["fused"], z0, ms
+
+
+def check_bspline_against_cpu(pedict, injdict, constants, params, bargs, n_events=10, n_found=10000):
+    """The fused route's float32 potential and gradient on the card against
+    a float64 CPU evaluation (K3's plain version) on a slice of the catalog:
+    the first ``n_events`` events with all their samples and the first
+    ``n_found`` injections."""
+    pe = {k: v[:n_events] for k, v in pedict.items()}
+    inj = {k: v[:n_found] for k, v in injdict.items()}
+    const = dict(constants, nObs=n_events)
+    out = []
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        models = build_bspline_models(pe, inj, bargs, device=dev, dtype=dtype)
+        model = model_from_args(pe, inj, const, list(pe), models, bargs)
+        pot = ModelPotential(model, device=dev, dtype=dtype)
+        z = pot.unconstrain({k: v.to(dev, dtype) for k, v in params.items()}, BSPLINE_CHAINS)
+        out.append([t.double().cpu() for t in pot.value_and_grad(z)])
+    (u32, g32), (u64, g64) = out
+    # the starts were found off the walls of the whole catalog; on the slice
+    # a chain may sit on one (too few effective injections), and is left out
+    ok = (u64.abs() < 1e30) & (u32.abs() < 1e30)
+    if not (bool(torch.isfinite(u64).all()) and int(ok.sum()) >= BSPLINE_CHAINS // 2):
+        raise AssertionError(f"reference potential off the likelihood walls expected, got {u64}")
+    torch.testing.assert_close(u32[ok], u64[ok], rtol=1e-4, atol=1e-3)
+    rel = float((g32[ok] - g64[ok]).norm() / g64[ok].norm())
+    if not rel < 1e-3:
+        raise AssertionError(f"float32 card gradient differs from the float64 CPU one: relative error {rel:.3e}")
+    log(f"  card f32 (fused route) vs CPU f64 on {n_events} events x {N_SAMPLES} + {n_found} injections, "
+        f"{int(ok.sum())} of {BSPLINE_CHAINS} chains off the walls: max|dU|={float((u32 - u64)[ok].abs().max()):.3e}, "
+        f"grad rel err={rel:.3e}")
+
+
+def _k3_bound_ms(design, nlp, C, E):
+    """The least time of one K3 launch: the larger of the bytes it must
+    move (every nlp entry, the design columns of the samples in support, the
+    coefficients and both outputs) over the memory rate, and its operations
+    (2 C K per sample in support over the float32 rate, or C exponentials
+    per sample over the special-function rate)."""
+    K, N = design.shape
+    n_live = int((nlp != -math.inf).sum())
+    bytes_ms = (N + K * n_live + C * K + 2 * C * E) * design.element_size() / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(2 * C * K * n_live / F32_FLOP_PER_S, C * n_live / SFU_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", n_live / N
+
+
+def _k3_library(coefs, design, nlp, n_events, n_samples):
+    """The library composite: ``torch.logsumexp`` of ``coefs @ design +
+    nlp`` and of twice it."""
+    logw = (coefs @ design + nlp).reshape(coefs.shape[0], n_events, n_samples)
+    return torch.logsumexp(logw, -1), torch.logsumexp(2.0 * logw, -1)
+
+
+def _k3_case(c, d, n, E, S, gen, tol, label):
+    """K3's forward (raw ``lse1, lse2``) and its autograd gradient to the
+    coefficients against the plain version on one bank; returns the forward
+    error."""
+    got = fused.flw_cuda(c, d, n, E, S)
+    want = fused._flw_torch(c, d, n, E, S)
+    torch.cuda.synchronize()
+    if any(bool(torch.isnan(g).any()) for g in got):
+        raise AssertionError(f"K3 {label}: NaN in the kernel's output")
+    err = max(_max_err(a, b) for a, b in zip(got, want))
+    w1 = torch.rand(want[0].shape, generator=gen, device="cuda", dtype=c.dtype)
+    w2 = torch.rand(want[0].shape, generator=gen, device="cuda", dtype=c.dtype) - 0.5
+    # the kernel's Function over the whole bank (a masked event gets a zero
+    # weight from its guard); the plain version's autograd over the live
+    # events only (its backward is NaN on an all--inf event)
+    ev = torch.nonzero(torch.isfinite(want[0]).all(0)).flatten()
+    K = d.shape[0]
+    d_live = d if len(ev) == E else d.reshape(K, E, S)[:, ev].reshape(K, -1)
+    n_live = n if len(ev) == E else n.reshape(E, S)[ev].reshape(-1)
+    grads = []
+    for fn, dd, nn, w1e, w2e in ((fused.fused_logweight_logsumexp, d, n, w1, w2),
+                                 (fused.fused_logweight_logsumexp_torch, d_live, n_live, w1[:, ev], w2[:, ev])):
+        cg = c.clone().requires_grad_(True)
+        lbf, lne = fn(cg, dd, nn, dd.shape[1] // S, S)
+        live = torch.isfinite(lbf) & torch.isfinite(lne)
+        loss = (w1e * lbf)[live].sum() + (w2e * lne)[live].sum()
+        grads.append(torch.autograd.grad(loss, cg)[0])
+    rel = float(_rel_err(grads[0], grads[1].double()).max())
+    log(f"  K3 {label}: lse max_abs_err={err:.3e}, d coefs rel_err={rel:.3e}")
+    if not (err <= tol and rel <= tol and bool(torch.isfinite(grads[0]).all())):
+        raise AssertionError(f"K3 {label}: error above {tol}")
+    return err
+
+
+def check_k3(fl, coefs, gen):
+    """K3 against its plain version on the fused route's two banks (PE
+    ``(165, 69 * 8000)``, the injections as one row of 46,770) for C = 1, 8
+    and 16 in float64 (limit 1e-10) and float32 (1e-4), and on the edge
+    bank; float32 kernel, plain, library and bound times at the main path's
+    C = 8 (and the kernel at C = 16).  Returns the kernels-line numbers."""
+    C16 = torch.cat([coefs, coefs + 0.05 * torch.randn(coefs.shape, generator=gen, device="cuda", dtype=coefs.dtype)])
+    banks = {
+        "PE": (fl.pe_design, fl.pe_nlp, fl.n_events, fl.n_samples),
+        "injections": (fl.inj_design, fl.inj_nlp, 1, fl.n_found),
+    }
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name, (d32, n32, E, S) in banks.items():
+        d64, n64 = d32.double(), n32.double()
+        for C in (1, BSPLINE_CHAINS, 16):
+            for dtype, d, n, tol in ((torch.float64, d64, n64, 1e-10), (torch.float32, d32, n32, 1e-4)):
+                c = C16[:C].to(dtype).contiguous()
+                err = _k3_case(c, d, n, E, S, gen, tol, f"{name} {tuple(d.shape)} E={E} C={C} {str(dtype)[6:]}")
+                if dtype == torch.float32:
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+        del d64, n64
+        c8 = C16[:BSPLINE_CHAINS].float().contiguous()
+        k_ms = time_ms(lambda: fused.flw_cuda(c8, d32, n32, E, S))
+        p_ms = time_ms(lambda: fused.fused_logweight_logsumexp_torch(c8, d32, n32, E, S))
+        lib_ms = time_ms(lambda: _k3_library(c8, d32, n32, E, S))
+        b_ms, b_by, live = _k3_bound_ms(d32, n32, BSPLINE_CHAINS, E)
+        c16 = C16.float().contiguous()
+        k16_ms = time_ms(lambda: fused.flw_cuda(c16, d32, n32, E, S))
+        b16_ms = _k3_bound_ms(d32, n32, 16, E)[0]
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", lib_ms), ("bound_ms", b_ms)):
+            out[key] += v
+        out["bound_by"] = b_by
+        log(f"  K3 {name} {tuple(d32.shape)} C={BSPLINE_CHAINS} f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {b_ms / k_ms:.1%} of the bound; "
+            f"{live:.1%} of the samples in support, tile {fused.flw_tile(E, S, fused._sm_count(0))}); "
+            f"C=16: kernel_ms={k16_ms:.4f} bound_ms={b16_ms:.4f} ({b16_ms / k16_ms:.1%})")
+
+    # an empty leading tile, a fully masked event, S a multiple of no tile,
+    # and the same bank as one long row; each dtype against its own plain version
+    coefs_e, design_e, nlp_e, E, S = k3_edge_case(seed=7, num_chains=16, n_rows=165)
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        c, d, n = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (coefs_e, design_e, nlp_e))
+        for e, s in ((E, S), (1, E * S)):
+            for C in (1, 16):
+                _k3_case(c[:C].contiguous(), d, n, e, s, gen, tol, f"edge bank E={e} S={s} C={C} {str(dtype)[6:]}")
+    return out
+
+
+def bspline_nuts(pedict, injdict, constants, bargs):
+    """NUTS on the fused route through ``run_bspline_analysis``, with the
+    K3 and K1 launch counts zeroed just before and read just after.
+    Returns the K3 launches."""
+    FLW_KERNEL.launches = 0
+    DLSE_KERNEL.launches = 0
+    with phase(f"NUTS on the B-spline fused route: {bargs.warmup} warmup + {bargs.samples} samples, "
+               f"{bargs.chains} chains, whitened, target {bargs.target_accept}, diagonal mass, depth {bargs.max_tree_depth}"):
+        posterior, models = run_bspline_analysis(pedict, injdict, constants, list(pedict), bargs, device="cuda",
+                                                 dtype=torch.float32)
+        torch.cuda.synchronize()
+    n_k3, n_k1 = FLW_KERNEL.launches, DLSE_KERNEL.launches
+    log(f"  launches on the B-spline fused route: K3 {n_k3}, K1 {n_k1}")
+    if n_k3 == 0:
+        raise AssertionError("K3 was not launched on the B-spline fused route")
+    if n_k1 != 0:
+        raise AssertionError("K1 ran on the B-spline fused route, which reduces both banks with K3")
+    mcmc = models["_mcmc"]
+    extra = mcmc.get_extra_fields()
+    n_draws = bargs.samples * bargs.chains
+    for k, v in posterior.items():
+        if v.shape[0] != n_draws or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"B-spline route, site {k}: values of shape {tuple(v.shape)} not finite")
+    missing = {"mass_cs", "q_cs", "a_cs", "tilt_cs", "z_cs", "rate"} - set(posterior)
+    if missing:
+        raise AssertionError(f"B-spline posterior misses {sorted(missing)}")
+    log(f"  timings: init {mcmc.timings['init']:.2f} s, warmup {mcmc.timings.get('warmup', 0.0):.2f} s, "
+        f"sampling {mcmc.timings['sample']:.2f} s")
+    log(f"  mean tree depth {float(extra['tree_depth'].double().mean()):.2f}, "
+        f"divergences {int(extra['diverging'].sum())}, mean accept {float(extra['accept_prob'].mean()):.3f}, "
+        f"leapfrogs in sampling {int(extra['num_steps'].sum())}; {len(posterior)} sites finite "
+        f"({', '.join(f'{k} {tuple(v.shape[1:])}' for k, v in sorted(posterior.items()) if k in COEF_SITES)} "
+        "from get_deterministic)")
+    samples = mcmc.get_samples(group_by_chain=True)
+    log(f"  ESS lamb {effective_sample_size(samples['lamb']):.1f}, unscaled_rate "
+        f"{effective_sample_size(samples['unscaled_rate']):.1f}; posterior means lamb "
+        f"{float(posterior['lamb'].double().mean()):.3f}, rate {float(posterior['rate'].double().mean()):.3f}")
+    return n_k3
+
+
+def bspline_route(args, catalog, gen):
+    """The B-spline production model: build, the two routes against each
+    other and timed, K3 against its plain version, the card against a
+    float64 CPU evaluation, then NUTS on the fused route.  Returns ``(K3
+    numbers, K3 launches, {route: ms})``."""
+    pedict, injdict, constants = catalog
+    bargs = bspline_args(args)
+    models, routes = bspline_build(pedict, injdict, constants, bargs)
+    pot_f, z0, ms = bspline_routes(routes, gen)
+    with phase("K3 against its plain version"):
+        k3 = check_k3(routes["fused"].fused_lik, _coef_values(routes["fused"], pot_f, z0), gen)
+    with phase("B-spline reference check"):
+        params = {k: v.detach() for k, v in pot_f.constrain(z0).items()}
+        check_bspline_against_cpu(pedict, injdict, constants, params, bargs)
+    del models, routes, pot_f
+    torch.cuda.empty_cache()
+    return k3, bspline_nuts(pedict, injdict, constants, bargs), ms
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -722,8 +1054,8 @@ def main(argv=None):
         card = card_line()
         log(f"  card: {card}")
     with phase("build"):
-        secs = build_all([DLSE_KERNEL, STREAMED_FWD_KERNEL, STREAMED_BWD_KERNEL])
-        log(f"  K1 (dlse.cu) and K2 (streamed.cu) built with nvcc for sm_90a, in parallel, in {secs:.2f} s")
+        secs = build_all([DLSE_KERNEL, STREAMED_FWD_KERNEL, STREAMED_BWD_KERNEL, FLW_KERNEL])
+        log(f"  K1 (dlse.cu), K2 (streamed.cu) and K3 (flw.cu) built with nvcc for sm_90a, in parallel, in {secs:.2f} s")
     with phase("K1 against its plain version"):
         k1 = check_k1(gen)
     k1_launches, (pedict, injdict, constants, z_model), init, flat_potential, z0 = flat_route(args, gen)
@@ -734,6 +1066,9 @@ def main(argv=None):
     with phase("K2 against its plain version"):
         k2 = check_k2(model_s, k2_theta(init, z_model), gen)
     n_fwd, n_bwd, flat_ms, streamed_ms = streamed_route(args, model_s, init, flat_potential, z0)
+    del model_s, flat_potential
+    torch.cuda.empty_cache()
+    k3, k3_launches, bspline_ms = bspline_route(args, (pedict, injdict, constants), gen)
 
     pe, inj = k1["pe"], k1["inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
@@ -758,6 +1093,10 @@ def main(argv=None):
              also_replaces="gwinferno_tpu/ops/streamed.py:115", launches=n_fwd, **k2["fwd"]),
         dict(k2_common, name="K2 streamed backward", replaces=STREAMED_BWD_KERNEL.replaces,
              also_replaces="gwinferno_tpu/ops/streamed.py:134", launches=n_bwd, **k2["bwd"]),
+        # one gradient's two launches at C = 8: the PE bank and the injection row
+        dict(name="K3 fused_logweight_logsumexp", route="cuda", source=os.path.relpath(FLW_KERNEL.source_path, HERE),
+             replaces=FLW_KERNEL.replaces, launches=k3_launches, fused_route_grad_ms=bspline_ms["fused"],
+             unfused_route_grad_ms=bspline_ms["unfused"], **k3),
     ]}
     log(card)
     print(json.dumps(kernels), flush=True)

@@ -14,6 +14,7 @@ import time
 import torch
 
 from ..device import resolve_device
+from ..ppl import handlers
 from ..ppl.infer_util import ModelPotential
 from ..ppl.infer_util import find_valid_initial_params
 from .hmc_util import build_warmup_schedule
@@ -142,3 +143,28 @@ class MCMC:
         if group_by_chain:
             return {k: v.transpose(0, 1) for k, v in self._extra.items()}
         return {k: v.reshape(-1) for k, v in self._extra.items()}
+
+    def get_deterministic(self, site_names=None, batch_size=64):
+        """Recompute the model's deterministic sites over the posterior
+        samples, ``batch_size`` draws at a time (the model is chain-batched,
+        so a batch of draws runs as a batch of chains).  Returns ``{name:
+        (num_samples * num_chains, ...)}`` in :meth:`get_samples`' order;
+        ``site_names`` keeps only those names.  Prints nothing."""
+        samples = self.get_samples()
+        pot = self._potential
+        n = next(iter(samples.values())).shape[0]
+        chunks = []
+        with torch.no_grad():
+            for start in range(0, n, batch_size):
+                chunk = {k: v[start : start + batch_size] for k, v in samples.items()}
+                b = next(iter(chunk.values())).shape[0]
+                with handlers.trace() as tr, handlers.substitute(data=chunk):
+                    pot.model(*pot.model_args, **pot.model_kwargs)
+                out = {}
+                for name, site in tr.trace.items():
+                    if site["type"] != "deterministic" or (site_names is not None and name not in site_names):
+                        continue
+                    v = torch.as_tensor(site["value"])
+                    out[name] = v if v.ndim > 0 and v.shape[0] == b else v.expand((b,) + tuple(v.shape))
+                chunks.append(out)
+        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]} if chunks else {}

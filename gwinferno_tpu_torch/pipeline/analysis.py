@@ -67,6 +67,13 @@ def hierarchical_likelihood(
     max_variance_cut=False,
     categorical=False,
     posterior_predictive_check=False,
+    param_names=None,
+    pedata=None,
+    injdata=None,
+    m2min=3.0,
+    m1min=5.0,
+    mmax=100.0,
+    log=True,
     pe_summaries=None,
     inj_summaries=None,
 ):
@@ -80,9 +87,14 @@ def hierarchical_likelihood(
 
     Summaries seam: ``pe_summaries=(logBFs, log_n_effs, n_samples)`` and
     ``inj_summaries=(log_mu, log_n_eff_inj)`` take reductions computed
-    upstream (the streamed op, ``ops/streamed.py``) in place of the weight
-    banks, which may then be None.  Categorical subpopulations and the
-    posterior-predictive draws are not ported; they raise.
+    upstream (the streamed op, ``ops/streamed.py``, or K3 through
+    ``FusedBSplineLikelihood``) in place of the weight banks, which may then
+    be None.  Categorical subpopulations and the posterior-predictive draws
+    are not ported; they raise.  ``param_names``, ``pedata``, ``injdata``,
+    ``m1min``, ``m2min`` and ``mmax`` feed only the posterior-predictive
+    draws and are unused.  The port has the log path only, so ``log``
+    defaults to True; ``log=False`` (linear weight banks, the JAX package's
+    default) raises.
     """
     if max_variance_cut and (marginalize_selection or min_neff_cut):
         raise ValueError(
@@ -97,6 +109,8 @@ def hierarchical_likelihood(
         raise ValueError("posterior_predictive_check needs the raw weight banks; disable it on the fused path")
     if categorical or posterior_predictive_check:
         raise NotImplementedError("categorical subpopulations and posterior-predictive draws are not ported")
+    if not log and (pe_summaries is None or inj_summaries is None):
+        raise NotImplementedError("the linear-weight path (log=False) is not ported; pass log-weights with log=True")
 
     if pe_summaries is not None:
         logBFs, logn_effs, n_samples = pe_summaries

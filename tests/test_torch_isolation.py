@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -76,6 +77,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     from gwinferno_tpu_torch.infer import MCMC, NUTS
     from gwinferno_tpu_torch.models.parametric.parametric import PowerlawRedshiftModel
+    from gwinferno_tpu_torch.pipeline.utils import setup_bspline_mass_models
     from gwinferno_tpu_torch.pipeline.utils import to_tensors
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -85,6 +87,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         to_tensors({"x": np.zeros(3)})
     with pytest.raises(RuntimeError, match="CUDA"):
         PowerlawRedshiftModel(np.full((2, 3), 0.5), np.full(4, 0.5))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        setup_bspline_mass_models({"mass_1": np.full((2, 3), 10.0), "mass_ratio": np.full((2, 3), 0.5)},
+                                  {"mass_1": np.full(4, 10.0), "mass_ratio": np.full(4, 0.5)}, 8, 6, 3.0, 100.0)
 
 
 def test_double_logsumexp_on_cpu_uses_the_plain_version(monkeypatch):
@@ -216,3 +221,61 @@ def test_chip_smoke_fails_without_cuda_and_prints_nothing():
     assert out.returncode != 0
     assert out.stdout == ""
     assert "CUDA is not available" in out.stderr
+
+
+def test_k3_on_cpu_uses_the_plain_version(monkeypatch):
+    import chip_smoke
+    from gwinferno_tpu_torch.ops import fused
+
+    def no_kernel(*args):
+        raise AssertionError("the CUDA kernel must not run for CPU tensors")
+
+    monkeypatch.setattr(fused, "flw_cuda", no_kernel)
+    before = fused.FLW_KERNEL.launches
+    coefs, design, nlp, E, S = (torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                                for a in chip_smoke.k3_edge_case(seed=1, num_chains=2, n_samples=300))
+    got = fused.fused_logweight_logsumexp(coefs, design, nlp, E, S)
+    want = fused.fused_logweight_logsumexp_torch(coefs, design, nlp, E, S)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w)) and torch.equal(g[~torch.isnan(w)], w[~torch.isnan(w)])
+    assert fused.FLW_KERNEL.launches == before
+
+
+def test_flw_cuda_rejects_what_the_kernel_does_not_take():
+    from gwinferno_tpu_torch.ops.fused import flw_cuda
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flw_cuda(torch.zeros(2, 3), torch.zeros(3, 8), torch.zeros(8), 2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_chains", [1, 3])
+def test_k3_kernel_matches_plain_version_on_the_card(num_chains):
+    """K3 on the card against its plain version on the edge bank (an empty
+    leading tile, a fully masked event, S a multiple of no tile) and as one
+    long row, both dtypes, and the gradient through the autograd Function
+    against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import chip_smoke
+    from gwinferno_tpu_torch.ops import fused
+
+    coefs, design, nlp, E, S = chip_smoke.k3_edge_case(seed=2, num_chains=num_chains)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        c, d, n = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (coefs, design, nlp))
+        for e, s in ((E, S), (1, E * S)):
+            before = fused.FLW_KERNEL.launches
+            got = fused.flw_cuda(c, d, n, e, s)
+            want = fused._flw_torch(c, d, n, e, s)
+            assert fused.FLW_KERNEL.launches == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(torch.isinf(a), torch.isinf(b)) and not bool(torch.isnan(a).any())
+                fin = torch.isfinite(b)
+                assert float((a[fin] - b[fin]).abs().max()) <= tol
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ct = torch.tensor(coefs, device=dev, requires_grad=True)
+        lbf, lne = fused.fused_logweight_logsumexp(ct, torch.tensor(design, device=dev), torch.tensor(nlp, device=dev), E, S)
+        live = torch.isfinite(lbf) & torch.isfinite(lne)
+        grads.append(torch.autograd.grad(lbf[live].sum() + 0.5 * lne[live].sum(), ct)[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-10, atol=1e-10)
