@@ -23,8 +23,10 @@ and with its wall time as it ends:
 5. K2 (``ops/csrc/streamed.cu``, the streamed whole-chain likelihood,
    forward and backward) held against its plain torch version on the
    streamed route's two banks (PE ``(69, 8000)``, injections ``(6, 8192)``)
-   for 1 and 16 chains, float64 and float32, and on a small bank that drives
-   every branch; kernel, plain and bound times;
+   for 1, 16 and 17 chains, float64 and float32, and on a small bank that
+   drives every branch (4 and 17 chains); per bank and direction at 16
+   chains: kernel, plain and bound times, the geometry from the card's SM
+   count and the kernel's registers;
 6. the streamed route: its potential and gradient against the flat
    route's at the same point, both timed, then the same NUTS run on it, then
    a ``torch.profiler`` trace of both routes' potential + gradient (device
@@ -611,32 +613,50 @@ def _k2_bound_ms(flags, C, direction):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+# chain counts held against the plain version: one, the main path's, and
+# one more, which no template size fits (17 chains: five forward chain
+# groups of at most 4, the last of one chain)
+K2_CHAINS = (1, N_CHAINS, N_CHAINS + 1)
+
+
+def _geo_text(g):
+    unit = "a thread" if g.direction == "fwd" else "a lane"
+    carry = f"{g.group} chains a block" if g.direction == "fwd" else f"one chain a warp, {g.slices} slices"
+    return (f"tile {g.tile}, {g.blocks} blocks ({g.resident} resident per SM, {g.waves:.2f} waves), "
+            f"{g.per_thread} samples {unit} per chain, {carry}")
+
+
 def check_k2(model_s, th, gen):
-    """K2 against its plain version at full width (both banks, C = 1 and
-    C = 16, float64 and float32) and on the edge bank; float32 kernel and
-    plain times at C = 16.  Returns the kernels-line numbers."""
+    """K2 against its plain version at full width (both banks, ``K2_CHAINS``
+    chains, float64 and float32) and on the edge bank; at C = 16, float32,
+    per bank and direction: kernel, plain and bound times, the geometry, the
+    kernel's registers.  ``th`` holds at
+    least ``max(K2_CHAINS)`` chains.  Returns the kernels-line numbers."""
     P64 = streamed.chain_params(th, MMIN, MMAX).contiguous()
     P32 = P64.float()
     out = {"fwd": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0},
            "bwd": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_rel_err": 0.0}}
     for name, bank in (("PE", model_s.pe_op), ("injections", model_s.inj_op)):
-        for C in (1, N_CHAINS):
+        for C in K2_CHAINS:
             e32, d_abs, r32 = _k2_pair(bank, P64[:C].contiguous(), P32[:C].contiguous(), gen,
                                        f"{name} {bank.shape} C={C}")
             out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], e32)
             out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], d_abs)
             out["bwd"]["max_rel_err"] = max(out["bwd"]["max_rel_err"], r32)
         # float32 times at the main path's C
+        P = P32[:N_CHAINS].contiguous()
         cols, flags = bank.columns(torch.float32, "cuda")
-        l1, l2 = streamed.streamed_fwd_cuda(cols, flags, P32)
+        l1, l2 = streamed.streamed_fwd_cuda(cols, flags, P)
         g1, g2 = torch.ones_like(l1), torch.full_like(l2, -0.5)
-        times = {
-            "fwd": (lambda: streamed.streamed_fwd_cuda(cols, flags, P32),
-                    lambda: streamed._streamed_fwd_torch(cols, flags, P32)),
-            "bwd": (lambda: streamed.streamed_bwd_cuda(cols, flags, P32, g1, g2, l1, l2),
-                    lambda: streamed._streamed_bwd_torch(cols, flags, P32, g1, g2, l1, l2)),
+        runs = {
+            "fwd": (lambda: streamed.streamed_fwd_cuda(cols, flags, P),
+                    lambda: streamed._streamed_fwd_torch(cols, flags, P)),
+            "bwd": (lambda: streamed.streamed_bwd_cuda(cols, flags, P, g1, g2, l1, l2),
+                    lambda: streamed._streamed_bwd_torch(cols, flags, P, g1, g2, l1, l2)),
         }
-        for d, (kern, plain) in times.items():
+        for d, (kern, plain) in runs.items():
+            geo = streamed.device_geometry(cols, P, d)
+            info = streamed.k2_kernel_info(torch.float32, d, geo.group, geo.smem)
             k_ms, p_ms = time_ms(kern), time_ms(plain)
             b_ms, b_by = _k2_bound_ms(flags, N_CHAINS, d)
             out[d]["ms"] += k_ms
@@ -645,6 +665,8 @@ def check_k2(model_s, th, gen):
             out[d]["bound_by"] = b_by
             log(f"  K2 {d} {name} {bank.shape} C={N_CHAINS} f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({b_by}; {b_ms / k_ms:.1%} of the bound)")
+            log(f"    geometry: {_geo_text(geo)}; {info['registers']} registers a thread, "
+                f"{info['local_bytes']} spill bytes, {info['blocks_per_sm']} blocks resident per SM")
 
     # every branch: beta on both sides of -1 and at -1, out-of-support
     # samples, a = 0 and 1, an all--inf row, a row on the redshift floor,
@@ -652,22 +674,23 @@ def check_k2(model_s, th, gen):
     # the dtype's own)
     banks, valid, zmax = k2_edge_case(seed=7)
     edge = streamed.StreamedBank(banks, MMIN, MMAX, zmax, valid=valid)
-    P = streamed.chain_params(k2_edge_theta(4, torch.float64, "cuda"), MMIN, MMAX).contiguous()
-    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-        cols, flags = edge.columns(dtype, "cuda")
-        Pd = P.to(dtype)
-        k = streamed.streamed_fwd_cuda(cols, flags, Pd)
-        p = streamed._streamed_fwd_torch(cols, flags, Pd)
-        err = max(_max_err(a, b) for a, b in zip(k, p))
-        l1, l2 = (torch.where(torch.isfinite(v), v, 0.0) for v in p)
-        g1, g2 = torch.isfinite(p[0]).to(dtype), -0.5 * torch.isfinite(p[1]).to(dtype)
-        d_k = streamed.streamed_bwd_cuda(cols, flags, Pd, g1, g2, l1, l2)
-        d_p = streamed._streamed_bwd_torch(cols, flags, Pd, g1, g2, l1, l2)
-        rel = float(_rel_err(d_k, d_p.double()).max())
-        log(f"  K2 edge bank {edge.shape} C=4 {str(dtype)[6:]} vs its plain version: lse max_abs_err={err:.3e} "
-            f"dP rel_err={rel:.3e}")
-        if not (err <= tol and rel <= tol and bool(torch.isfinite(d_k).all())):
-            raise AssertionError(f"K2 edge bank, {dtype}: error above {tol}")
+    for C in (4, N_CHAINS + 1):
+        P = streamed.chain_params(k2_edge_theta(C, torch.float64, "cuda"), MMIN, MMAX).contiguous()
+        for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+            cols, flags = edge.columns(dtype, "cuda")
+            Pd = P.to(dtype)
+            k = streamed.streamed_fwd_cuda(cols, flags, Pd)
+            p = streamed._streamed_fwd_torch(cols, flags, Pd)
+            err = max(_max_err(a, b) for a, b in zip(k, p))
+            l1, l2 = (torch.where(torch.isfinite(v), v, 0.0) for v in p)
+            g1, g2 = torch.isfinite(p[0]).to(dtype), -0.5 * torch.isfinite(p[1]).to(dtype)
+            d_k = streamed.streamed_bwd_cuda(cols, flags, Pd, g1, g2, l1, l2)
+            d_p = streamed._streamed_bwd_torch(cols, flags, Pd, g1, g2, l1, l2)
+            rel = float(_rel_err(d_k, d_p.double()).max())
+            log(f"  K2 edge bank {edge.shape} C={C} {str(dtype)[6:]} vs its plain version: lse max_abs_err={err:.3e} "
+                f"dP rel_err={rel:.3e}")
+            if not (err <= tol and rel <= tol and bool(torch.isfinite(d_k).all())):
+                raise AssertionError(f"K2 edge bank, C={C}, {dtype}: error above {tol}")
     return out
 
 
@@ -1064,7 +1087,10 @@ def main(argv=None):
         model_s = BenchModel(pedict, injdict, constants, z_model, device="cuda", dtype=torch.float32, streamed=True)
         torch.cuda.synchronize()
     with phase("K2 against its plain version"):
-        k2 = check_k2(model_s, k2_theta(init, z_model), gen)
+        # the main path's 16 starts and one more, for the odd chain count
+        extra = jittered_init(1, gen, dtype=torch.float64)
+        init_k2 = {k: torch.cat([v.to("cuda"), extra[k]]) for k, v in init.items()}
+        k2 = check_k2(model_s, k2_theta(init_k2, z_model), gen)
     n_fwd, n_bwd, flat_ms, streamed_ms = streamed_route(args, model_s, init, flat_potential, z0)
     del model_s, flat_potential
     torch.cuda.empty_cache()

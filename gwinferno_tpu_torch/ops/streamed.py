@@ -27,7 +27,8 @@ The split of the work:
 - the op evaluates the per-sample chain from ``P`` and the columns and
   returns ``d/dP`` in its backward.  On a CUDA tensor both directions are the
   hand-written kernels of ``csrc/streamed.cu`` (one launch covers all C
-  chains, C = 1 included); on a CPU tensor they are the plain versions
+  chains, C = 1 included, with a geometry that :func:`device_geometry`
+  takes from the card); on a CPU tensor they are the plain versions
   :func:`_streamed_fwd_torch` and :func:`_streamed_bwd_torch`, which run the
   same chain and the same analytic derivative in torch ops, in chunks over
   the bank.
@@ -36,7 +37,9 @@ The split of the work:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,11 +48,17 @@ from ..distributions import _betaln
 from ..distributions import _norm_cdf
 from ..distributions import _powerlaw_log_norm
 from ._build import Kernel
+from .fused import _sm_count
 
 __all__ = [
     "THETA",
     "StreamedBank",
+    "K2Geometry",
     "chain_params",
+    "k2_geometry",
+    "k2_geometry_at",
+    "device_geometry",
+    "k2_kernel_info",
     "reshape_bank_rows",
     "streamed_summaries",
     "STREAMED_FWD_KERNEL",
@@ -78,19 +87,35 @@ N_P = 23
 P_STRIDE = 24
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
-_THREADS = 256
-_N_SM = 132
 _CHUNK = 2048  # samples per chunk of the plain versions
 
-_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# launch geometry (csrc/streamed.cu): threads and warps a block; the
+# forward's samples a thread and the backward's samples a lane to choose
+# from; a block's fixed cost (its staging and closing reduction) in samples a
+# thread; the cap on the backward's staged tile; an SM's shared memory and
+# what the card reserves of it per block
+_THREADS = 256
+_WARPS = _THREADS // 32
+_FWD_PER_THREAD = range(1, 17)
+_BWD_PER_LANE = (1, 2, 4, 8, 16, 32)
+_BLOCK_COST = {"fwd": 1.5, "bwd": 4.0}
+_MAX_SMEM = 64 * 1024
+_SLOT = 32  # a backward warp's shared-memory slot, in values
+_SM_SMEM, _SMEM_PER_BLOCK = 233472, 1024
+# the most chains a forward block carries (the kernel's kMaxChains; the
+# backward gives each warp one chain): the fastest choice on an H100, PERF.md
+FWD_GROUP = 4
+
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_INFO_ARGS = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
 # one source, one library; one Kernel (and launch count) per direction.  Each
 # kernel has a chain axis, so it replaces both the one-chain and the
 # chain-batched Pallas kernel: forward :115 and :234, backward :134 and :260.
 STREAMED_FWD_KERNEL = Kernel(
     "gw_streamed",
     "streamed.cu",
-    {"gw_k2_fwd_f32": _FWD_ARGS, "gw_k2_fwd_f64": _FWD_ARGS},
+    {"gw_k2_fwd_f32": _FWD_ARGS, "gw_k2_fwd_f64": _FWD_ARGS, "gw_k2_kernel_info": _INFO_ARGS},
     replaces="gwinferno_tpu/ops/streamed.py:234",
 )
 STREAMED_BWD_KERNEL = Kernel(
@@ -386,13 +411,128 @@ def _streamed_bwd_torch(cols, flags, P, g1, g2, l1, l2, chunk=_CHUNK):
 # ----------------------------------------------------------------- kernels
 
 
-def _tile_for(rows, S):
-    """Samples per block: the largest of 1024, 512, 256 that still gives two
-    blocks per SM, else 256."""
-    for tile in (1024, 512):
-        if rows * -(-S // tile) >= 2 * _N_SM:
-            return tile
-    return _THREADS
+class K2Geometry(NamedTuple):
+    """One K2 launch's geometry.  A block owns ``tile`` samples of one row.
+    Forward: ``group`` chains in its registers, ``chain_blocks`` blocks along
+    the chains.  Backward: each warp owns one chain (``group`` is 1) over one
+    of ``slices`` parts of the tile.  ``resident`` blocks fit on an SM at
+    once, so the grid of ``blocks`` runs in ``waves`` (a fraction) of
+    ``num_sms * resident``.  ``per_thread`` is the samples a thread (forward)
+    or lane (backward) covers per (chain, reduction), ``smem`` the dynamic
+    shared memory a block and ``part_shape`` the partials' shape."""
+
+    direction: str
+    tile: int
+    n_tiles: int
+    chain_blocks: int
+    blocks: int
+    resident: int
+    waves: float
+    per_thread: int
+    slices: int
+    group: int
+    smem: int
+    part_shape: tuple
+
+
+def _bwd_split(C):
+    """The backward's ``(slices, chains a warp carries in turn)``: the tile
+    is split into slices only when there are fewer chains than warps."""
+    slices = max(1, _WARPS // C)
+    return slices, -(-(C * slices) // _WARPS)
+
+
+def _fwd_group(C):
+    """Chains a forward block carries: ``C`` split into equal groups of at
+    most ``FWD_GROUP``."""
+    return -(-C // -(-C // FWD_GROUP))
+
+
+def k2_geometry_at(rows, S, C, num_sms, blocks_per_sm, dtype, direction, per_thread):
+    """The :class:`K2Geometry` of K2's ``direction`` (``"fwd"`` or
+    ``"bwd"``) on a ``(rows, S)`` bank for ``C`` chains, on a card of
+    ``num_sms`` SMs where the kernel keeps ``blocks_per_sm`` blocks resident
+    (its register limit), with ``per_thread`` samples a thread (forward) or
+    lane (backward) per (chain, reduction)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    if direction == "fwd":
+        group = _fwd_group(C)
+        tile, slices, chain_blocks, smem = _THREADS * per_thread, 1, -(-C // group), 0
+    elif direction == "bwd":
+        group, slices, chain_blocks = 1, _bwd_split(C)[0], 1
+        tile = 32 * per_thread * slices
+        # each warp's slot (its chain's parameters and cotangents), then the tile
+        smem = (_WARPS * _SLOT + N_COL * tile) * itemsize + 4 * tile
+    else:
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
+    resident = min(blocks_per_sm, _SM_SMEM // (smem + _SMEM_PER_BLOCK)) if smem else blocks_per_sm
+    n_tiles = -(-S // tile)
+    blocks = rows * n_tiles * chain_blocks
+    part = (C, rows, n_tiles, 3) if direction == "fwd" else (C, rows, n_tiles, slices, P_STRIDE)
+    return K2Geometry(direction, tile, n_tiles, chain_blocks, blocks, resident,
+                      blocks / (num_sms * max(resident, 1)), per_thread, slices, group, smem, part)
+
+
+def _model_cost(g, C):
+    """A launch's time in the model of :func:`k2_geometry`, in chain
+    evaluations a thread."""
+    chains = g.group if g.direction == "fwd" else _bwd_split(C)[1]
+    return (g.waves + 1.0) * chains * (g.per_thread + _BLOCK_COST[g.direction])
+
+
+@functools.lru_cache(maxsize=None)
+def k2_geometry(rows, S, C, num_sms, blocks_per_sm, dtype, direction):
+    """The launch geometry of K2's ``direction`` on a ``(rows, S)`` bank for
+    ``C`` chains, on a card of ``num_sms`` SMs where the kernel keeps
+    ``blocks_per_sm`` blocks resident (see :func:`k2_geometry_at`).
+
+    Blocks start as slots free up, so a launch takes about its ``waves`` of
+    ``num_sms * resident`` blocks plus one block's time for the last block
+    to finish; a block takes, per chain it (forward) or a warp (backward)
+    carries, its samples a thread plus a fixed cost (``_BLOCK_COST``: the
+    staging and the closing reduction).  Of the tiles that fit (the backward
+    stages its tile and its warps' parameters in at most ``_MAX_SMEM``
+    bytes; its shortest tile always qualifies), the one with the least
+    ``(waves + 1) * block time`` wins; ties go to the longer tile.
+
+    Forward: ``tile = 256 * per_thread``, partials ``(C, rows, n_tiles, 3)``.
+    Backward: ``tile = 32 * per_thread * slices``, partials ``(C, rows,
+    n_tiles, slices, 24)``."""
+    per = _FWD_PER_THREAD if direction == "fwd" else _BWD_PER_LANE
+    geos = [k2_geometry_at(rows, S, C, num_sms, blocks_per_sm, dtype, direction, n) for n in per]
+    return min(
+        (g for g in geos if g.smem <= _MAX_SMEM or g.per_thread == 1),
+        key=lambda g: (_model_cost(g, C), -g.per_thread),
+    )
+
+
+def k2_kernel_info(dtype, direction, group, smem=0):
+    """Registers and spill bytes a thread and resident blocks per SM (at
+    ``smem`` bytes of dynamic shared memory) of one K2 kernel on the current
+    card; ``group`` is the forward's chains a block (the backward ignores
+    it)."""
+    out = (ctypes.c_int * 3)()
+    STREAMED_FWD_KERNEL.call(
+        "gw_k2_kernel_info", int(dtype == torch.float64), int(direction == "bwd"), group, smem, out
+    )
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(dtype, direction, group, device_index):
+    with torch.cuda.device(device_index):
+        return k2_kernel_info(dtype, direction, group)["blocks_per_sm"]
+
+
+def device_geometry(cols, P, direction):
+    """The geometry K2's ``direction`` launches with on ``P``'s card, which
+    :func:`k2_geometry` picks from the card's SM count and the kernel's
+    occupancy as the card reports it."""
+    rows, S = cols.shape[1:]
+    C = P.shape[0]
+    dev = P.device.index if P.device.index is not None else torch.cuda.current_device()
+    group = _fwd_group(C) if direction == "fwd" else 1
+    return k2_geometry(rows, S, C, _sm_count(dev), _blocks_per_sm(P.dtype, direction, group, dev), P.dtype, direction)
 
 
 def _check_cuda(name, cols, flags, P, *rest):
@@ -404,8 +544,8 @@ def _check_cuda(name, cols, flags, P, *rest):
         raise TypeError(f"{name} needs int32 flags, got {flags.dtype}")
     if cols.ndim != 3 or cols.shape[0] != N_COL or tuple(flags.shape) != tuple(cols.shape[1:]):
         raise ValueError(f"{name}: columns {tuple(cols.shape)} and flags {tuple(flags.shape)} do not fit")
-    if P.ndim != 2 or P.shape[1] != P_STRIDE:
-        raise ValueError(f"{name}: parameters of shape {tuple(P.shape)}, want (C, {P_STRIDE})")
+    if P.ndim != 2 or P.shape[1] != P_STRIDE or P.shape[0] == 0:
+        raise ValueError(f"{name}: parameters of shape {tuple(P.shape)}, want (C, {P_STRIDE}) with C >= 1")
     C, rows = P.shape[0], cols.shape[1]
     for v in rest:
         if tuple(v.shape) != (C, rows):
@@ -415,39 +555,39 @@ def _check_cuda(name, cols, flags, P, *rest):
 
 
 def streamed_fwd_cuda(cols, flags, P):
-    """Launch the forward kernel (and its merge pass); returns ``(lse1,
-    lse2)``, each ``(C, rows)``."""
+    """Launch the forward kernel (and its merge pass) with the geometry
+    :func:`device_geometry` picks; returns ``(lse1, lse2)``, each ``(C,
+    rows)``."""
     _check_cuda("streamed_fwd_cuda", cols, flags, P)
     C, (rows, S) = P.shape[0], cols.shape[1:]
-    tile = _tile_for(rows, S)
-    n_tiles = -(-S // tile)
-    part = torch.empty((C, rows, n_tiles, 3), dtype=P.dtype, device=P.device)
+    geo = device_geometry(cols, P, "fwd")
+    part = torch.empty(geo.part_shape, dtype=P.dtype, device=P.device)
     lse1 = torch.empty((C, rows), dtype=P.dtype, device=P.device)
     lse2 = torch.empty((C, rows), dtype=P.dtype, device=P.device)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
         STREAMED_FWD_KERNEL.call(
             f"gw_k2_fwd_{_SUFFIX[P.dtype]}", cols.data_ptr(), flags.data_ptr(), P.data_ptr(), part.data_ptr(),
-            lse1.data_ptr(), lse2.data_ptr(), C, rows, S, tile, stream,
+            lse1.data_ptr(), lse2.data_ptr(), C, rows, S, geo.tile, geo.group, stream,
         )
     STREAMED_FWD_KERNEL.launches += 1
     return lse1, lse2
 
 
 def streamed_bwd_cuda(cols, flags, P, g1, g2, l1, l2):
-    """Launch the backward kernel (and its merge pass); returns ``dP``
-    ``(C, P_STRIDE)``."""
+    """Launch the backward kernel (and its merge pass) with the geometry
+    :func:`device_geometry` picks; returns ``dP`` ``(C, P_STRIDE)``."""
     _check_cuda("streamed_bwd_cuda", cols, flags, P, g1, g2, l1, l2)
     C, (rows, S) = P.shape[0], cols.shape[1:]
-    tile = _tile_for(rows, S)
-    n_tiles = -(-S // tile)
-    part = torch.empty((C, rows, n_tiles, P_STRIDE), dtype=P.dtype, device=P.device)
+    geo = device_geometry(cols, P, "bwd")
+    part = torch.empty(geo.part_shape, dtype=P.dtype, device=P.device)
     dP = torch.empty((C, P_STRIDE), dtype=P.dtype, device=P.device)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
         STREAMED_BWD_KERNEL.call(
             f"gw_k2_bwd_{_SUFFIX[P.dtype]}", cols.data_ptr(), flags.data_ptr(), P.data_ptr(), g1.data_ptr(),
-            g2.data_ptr(), l1.data_ptr(), l2.data_ptr(), part.data_ptr(), dP.data_ptr(), C, rows, S, tile, stream,
+            g2.data_ptr(), l1.data_ptr(), l2.data_ptr(), part.data_ptr(), dP.data_ptr(), C, rows, S, geo.tile,
+            geo.slices, stream,
         )
     STREAMED_BWD_KERNEL.launches += 1
     return dP

@@ -171,18 +171,22 @@ def test_streamed_cuda_wrappers_reject_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_chains", [1, 3])
-def test_k2_kernels_match_plain_versions_on_the_card(num_chains):
+@pytest.mark.parametrize("num_chains", [1, 2, 3, 17])
+@pytest.mark.parametrize("shape", [(6, 700), (69, 8000)], ids=["edge", "full_width"])
+def test_k2_kernels_match_plain_versions_on_the_card(num_chains, shape):
     """K2's forward and backward kernels against their plain versions on a
-    small bank that drives every branch (both dtypes; f32 against the f32
-    plain version, since the redshift floor is the dtype's own), then the
-    whole op, gradient included, on the card against the CPU."""
+    bank that drives every branch (both dtypes; f32 against the f32 plain
+    version, since the redshift floor is the dtype's own), small and at the
+    PE bank's full width (the geometry the main path launches with; 2 and 3
+    chains run in one forward block of 4 with the rest masked, 17 in five
+    chain groups, the last of one chain), then the whole op, gradient
+    included, on the card against the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import chip_smoke
     from gwinferno_tpu_torch.ops import streamed
 
-    banks, valid, zmax = chip_smoke.k2_edge_case(seed=2)
+    banks, valid, zmax = chip_smoke.k2_edge_case(seed=2, rows=shape[0], n_samples=shape[1])
     bank = streamed.StreamedBank(banks, 5.0, 100.0, zmax, valid=valid)
     tol = {torch.float32: 1e-4, torch.float64: 1e-10}
     for dtype in (torch.float32, torch.float64):
