@@ -12,9 +12,11 @@ and with its wall time as it ends:
 2. build: every CUDA kernel of the port, compiled with ``nvcc`` for
    ``sm_90a`` from the sources in the checkout;
 3. K1 (``ops/csrc/dlse.cu``, the double logsumexp) held against its plain
-   torch version in float32 and float64, gradient included, at the main
-   path's shapes plus all--inf and partly--inf rows; kernel, plain and
-   library times;
+   torch version in float32 and float64, gradient included, at the flat
+   route's and the unfused B-spline route's shapes plus all--inf and
+   partly--inf rows, two launches bit for bit; kernel, plain, library and
+   bound times beside the earlier design's, the geometry from the card's SM
+   count and the kernel's occupancy, its registers;
 4. the flat route (the default) at full catalog width: a synthetic catalog
    made from ``--seed`` with numpy (69 events x 8000 PE samples, 46,770
    found injections), the bench model's potential and gradient for 16
@@ -35,10 +37,14 @@ and with its wall time as it ends:
    mmin 3, mmax 100; whitened coefficient priors) on the same catalog: both
    routes built (build seconds, design bytes on the card), the fused route
    (K3) against the unfused one (K1) at the same 8 starts and both timed,
+   a profile of both (device time per gradient, the port's kernels' share),
    K3 (``ops/csrc/flw.cu``, the coefficient product with the double
    logsumexp) against its plain version on the route's two banks for 1, 8
-   and 16 chains in float64 and float32 and on an edge bank, the fused
-   route against a float64 CPU evaluation on a slice of the catalog, then
+   and 16 chains in float64 and float32, on the injection design stored
+   with unaligned rows and on an edge bank, two launches bit for bit, with
+   kernel, plain, library and bound times beside the earlier design's, the
+   geometry and registers; the fused route against a float64 CPU
+   evaluation on a slice of the catalog, then
    an 8-chain NUTS run on the fused route through ``run_bspline_analysis``
    (target 0.9, diagonal mass, depth 6);
 8. the kernels line (one JSON object), then the contract line
@@ -114,6 +120,15 @@ F32_FLOP_PER_S = 67e12
 # K1's arithmetic per element: compare, subtract, exp, two adds, a multiply
 # and the rare rescale -- counted as 8 operations
 K1_OPS_PER_ELEMENT = 8
+# the earlier designs' times (ms, float32) of K1 (one block a row) and K3
+# (one sample a thread, a separate merge kernel), measured by this script's
+# K1 and K3 phases on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section
+# 6), printed beside each launch's time now; the unfused B-spline route's K1
+# calls were not timed then
+EARLIER_MS = {
+    "K1 flat_pe": 0.0395, "K1 flat_inj": 0.0869,
+    "K3 PE C=8": 0.2317, "K3 injections C=8": 0.1039, "K3 PE C=16": 0.3399, "K3 injections C=16": 0.1181,
+}
 # special-function unit results/s: 16 per clock per SM for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput: exp2, log2, reciprocal), x 132 SMs x 1.98 GHz, the boost clock
@@ -385,14 +400,30 @@ def _max_err(got, want):
     return float(torch.where(same_inf, 0.0, (got - want).abs()).max())
 
 
+def _earlier(key, ms):
+    was = EARLIER_MS.get(key)
+    return f"earlier design {was:.4f} ms ({was / ms:.2f}x)" if was else "earlier design not measured"
+
+
 def check_k1(gen):
-    """K1 against its plain version; returns the per-shape f32 results."""
-    main_shapes = [("pe", (N_CHAINS * N_EVENTS, N_SAMPLES)), ("inj", (N_CHAINS, N_FOUND))]
+    """K1 against its plain version on the flat route's shapes (C = 16), the
+    unfused B-spline route's (C = 8) and two edge shapes, float32 and
+    float64, gradient included; two launches on the same input must give
+    identical bits.  At the main path's shapes, float32: kernel, plain,
+    library and bound times beside the earlier design's, the geometry and
+    the kernel's registers.  Returns the per-shape f32 results."""
+    main_shapes = [
+        ("flat_pe", (N_CHAINS * N_EVENTS, N_SAMPLES)), ("flat_inj", (N_CHAINS, N_FOUND)),
+        ("bspline_pe", (BSPLINE_CHAINS * N_EVENTS, N_SAMPLES)), ("bspline_inj", (BSPLINE_CHAINS, N_FOUND)),
+    ]
     extra_shapes = [("all_-inf_rows", (8, 1000)), ("part_-inf_rows", (64, 3000))]
     tol = {torch.float32: dict(atol=1e-4, rtol=0.0), torch.float64: dict(atol=0.0, rtol=1e-12)}
     gtol = {torch.float32: dict(atol=1e-7, rtol=1e-4), torch.float64: dict(atol=1e-16, rtol=1e-10)}
     results = {}
     for dtype in (torch.float32, torch.float64):
+        info = fused.dlse_kernel_info(dtype)
+        log(f"  K1 {str(dtype)[6:]}: {info['registers']} registers a thread, {info['local_bytes']} spill bytes, "
+            f"{info['blocks_per_sm']} blocks resident per SM")
         for name, shape in main_shapes + extra_shapes:
             x = 10.0 + 3.0 * torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
             if name == "all_-inf_rows":
@@ -403,7 +434,10 @@ def check_k1(gen):
                 x[5] = -math.inf
             got = double_logsumexp(x)
             want = _dlse_torch(x)
+            again = double_logsumexp(x)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K1 {name} {dtype}: two launches on the same input differ")
             err = max(_max_err(got[0], want[0]), _max_err(got[1], want[1]))
             t = tol[dtype]
             for g, w in zip(got, want):
@@ -424,8 +458,8 @@ def check_k1(gen):
             if not bool(torch.isfinite(g_kernel).all()):
                 raise AssertionError(f"K1 gradient not finite ({name}, {dtype})")
             torch.testing.assert_close(g_kernel, g_plain, **gtol[dtype])
-            log(f"  K1 {name} {tuple(shape)} {str(dtype)[6:]}: max_abs_err={err:.3e} ok")
-            if dtype == torch.float32 and name in ("pe", "inj"):
+            log(f"  K1 {name} {tuple(shape)} {str(dtype)[6:]}: max_abs_err={err:.3e}, repeatable, ok")
+            if dtype == torch.float32 and name in dict(main_shapes):
                 R, N = shape
                 k_ms = time_ms(lambda: double_logsumexp(x))
                 p_ms = time_ms(lambda: _dlse_torch(x))
@@ -437,11 +471,14 @@ def check_k1(gen):
                     "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 }
+                g = fused.dlse_device_geometry(x)
                 log(
                     f"  K1 {name} {tuple(shape)} f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                     f"library_ms={lib_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} "
-                    f"({results[name]['bound_by']}; {bytes_ms / k_ms:.1%} of the bound)"
+                    f"({results[name]['bound_by']}; {bytes_ms / k_ms:.1%} of the bound); {_earlier('K1 ' + name, k_ms)}"
                 )
+                log(f"    geometry: tile {g.tile}, {g.n_tiles} tiles a row, {g.blocks} blocks ({g.resident} resident "
+                    f"per SM, {g.waves:.2f} waves), {g.per_thread} vectors a thread")
     return results
 
 
@@ -733,11 +770,16 @@ def streamed_route(args, model_s, init, flat_potential, z0):
     return n_fwd, n_bwd, ms["flat"], ms["streamed"]
 
 
+# the port's kernels by a part of their device names (csrc/*.cu)
+PORT_KERNELS = {"K1": "dlse_kernel", "K2": "k2_", "K3": "flw_kernel"}
+
+
 def profile_routes(potentials, z0, calls=5):
     """``torch.profiler`` over ``calls`` potential + gradient evaluations of
-    each route; prints per call the host wall time, the
-    device time, the number of device operations and the device's busy
-    share, and the five device operations that take the most time."""
+    each route; prints per call the host wall time, the device time, the
+    number of device operations, the device's busy share and the device
+    time of each of the port's kernels, and the five device operations that
+    take the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile
@@ -757,8 +799,10 @@ def profile_routes(potentials, z0, calls=5):
         for e in ops:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / calls
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        mine = {k: sum(ms for op, ms in by_name.items() if tag in op) for k, tag in PORT_KERNELS.items()}
         log(f"  profile, {name} route, per potential + gradient: wall {wall_ms:.3f} ms (host clock, profiler on), "
-            f"device {dev_ms:.3f} ms in {len(ops) / calls:.0f} device operations, busy share {dev_ms / wall_ms:.1%}")
+            f"device {dev_ms:.3f} ms in {len(ops) / calls:.0f} device operations, busy share {dev_ms / wall_ms:.1%}; "
+            "the port's kernels: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in mine.items()))
         for op, ms in top:
             log(f"    {ms:.4f} ms  {op[:100]}")
 
@@ -920,13 +964,16 @@ def _k3_library(coefs, design, nlp, n_events, n_samples):
 
 def _k3_case(c, d, n, E, S, gen, tol, label):
     """K3's forward (raw ``lse1, lse2``) and its autograd gradient to the
-    coefficients against the plain version on one bank; returns the forward
-    error."""
+    coefficients against the plain version on one bank; two launches must
+    give identical bits.  Returns the forward error."""
     got = fused.flw_cuda(c, d, n, E, S)
     want = fused._flw_torch(c, d, n, E, S)
+    again = fused.flw_cuda(c, d, n, E, S)
     torch.cuda.synchronize()
     if any(bool(torch.isnan(g).any()) for g in got):
         raise AssertionError(f"K3 {label}: NaN in the kernel's output")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K3 {label}: two launches on the same input differ")
     err = max(_max_err(a, b) for a, b in zip(got, want))
     w1 = torch.rand(want[0].shape, generator=gen, device="cuda", dtype=c.dtype)
     w2 = torch.rand(want[0].shape, generator=gen, device="cuda", dtype=c.dtype) - 0.5
@@ -946,18 +993,29 @@ def _k3_case(c, d, n, E, S, gen, tol, label):
         loss = (w1e * lbf)[live].sum() + (w2e * lne)[live].sum()
         grads.append(torch.autograd.grad(loss, cg)[0])
     rel = float(_rel_err(grads[0], grads[1].double()).max())
-    log(f"  K3 {label}: lse max_abs_err={err:.3e}, d coefs rel_err={rel:.3e}")
+    log(f"  K3 {label}: lse max_abs_err={err:.3e}, d coefs rel_err={rel:.3e}, repeatable")
     if not (err <= tol and rel <= tol and bool(torch.isfinite(grads[0]).all())):
         raise AssertionError(f"K3 {label}: error above {tol}")
     return err
 
 
+def _k3_geo_text(c, d, E, S):
+    g = fused.flw_device_geometry(c, d, E, S)
+    info = fused.k3_kernel_info(c.dtype, g.width, g.smem)
+    return (f"tile {g.tile}, rows split {g.ksplit} ways, {g.steps} runs a lane, {g.blocks} blocks ({g.resident} "
+            f"resident per SM, {g.waves:.2f} waves) x {g.groups} launch(es) of the {g.width}-chain kernel; "
+            f"{info['registers']} registers a thread, {info['local_bytes']} spill bytes, {g.smem} B shared memory")
+
+
 def check_k3(fl, coefs, gen):
     """K3 against its plain version on the fused route's two banks (PE
-    ``(165, 69 * 8000)``, the injections as one row of 46,770) for C = 1, 8
-    and 16 in float64 (limit 1e-10) and float32 (1e-4), and on the edge
-    bank; float32 kernel, plain, library and bound times at the main path's
-    C = 8 (and the kernel at C = 16).  Returns the kernels-line numbers."""
+    ``(165, 69 * 8000)``, the injections as one row of 46,770; both designs
+    padded-stride views) for C = 1, 8 and 16 in float64 (limit 1e-10) and
+    float32 (1e-4), on the injection design stored contiguously (rows of an
+    odd 4-byte alignment), and on the edge bank; float32 kernel, plain,
+    library and bound times at the main path's C = 8 (and the kernel at
+    C = 16) beside the earlier design's, with the geometry and registers.
+    Returns the kernels-line numbers."""
     C16 = torch.cat([coefs, coefs + 0.05 * torch.randn(coefs.shape, generator=gen, device="cuda", dtype=coefs.dtype)])
     banks = {
         "PE": (fl.pe_design, fl.pe_nlp, fl.n_events, fl.n_samples),
@@ -969,11 +1027,18 @@ def check_k3(fl, coefs, gen):
         for C in (1, BSPLINE_CHAINS, 16):
             for dtype, d, n, tol in ((torch.float64, d64, n64, 1e-10), (torch.float32, d32, n32, 1e-4)):
                 c = C16[:C].to(dtype).contiguous()
-                err = _k3_case(c, d, n, E, S, gen, tol, f"{name} {tuple(d.shape)} E={E} C={C} {str(dtype)[6:]}")
+                err = _k3_case(c, d, n, E, S, gen, tol, f"{name} {tuple(d.shape)} stride {d.stride(0)} E={E} C={C} "
+                               f"{str(dtype)[6:]}")
                 if dtype == torch.float32:
                     out["max_abs_err"] = max(out["max_abs_err"], err)
         del d64, n64
+        if d32.stride(0) % 4:
+            raise AssertionError(f"K3 {name}: the design's rows are not padded to whole 16-byte vectors")
         c8 = C16[:BSPLINE_CHAINS].float().contiguous()
+        dc = d32.contiguous()  # rows E * S values apart: every other row unaligned when E * S is odd
+        _k3_case(c8, dc, n32, E, S, gen, 1e-4, f"{name} contiguous {tuple(dc.shape)} stride {dc.stride(0)} E={E} "
+                 f"C={BSPLINE_CHAINS} float32")
+        del dc
         k_ms = time_ms(lambda: fused.flw_cuda(c8, d32, n32, E, S))
         p_ms = time_ms(lambda: fused.fused_logweight_logsumexp_torch(c8, d32, n32, E, S))
         lib_ms = time_ms(lambda: _k3_library(c8, d32, n32, E, S))
@@ -986,15 +1051,22 @@ def check_k3(fl, coefs, gen):
         out["bound_by"] = b_by
         log(f"  K3 {name} {tuple(d32.shape)} C={BSPLINE_CHAINS} f32: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; {b_ms / k_ms:.1%} of the bound; "
-            f"{live:.1%} of the samples in support, tile {fused.flw_tile(E, S, fused._sm_count(0))}); "
-            f"C=16: kernel_ms={k16_ms:.4f} bound_ms={b16_ms:.4f} ({b16_ms / k16_ms:.1%})")
+            f"{live:.1%} of the samples in support); {_earlier(f'K3 {name} C=8', k_ms)}")
+        log(f"    geometry: {_k3_geo_text(c8, d32, E, S)}")
+        sum_ms = time_ms(lambda: d32.sum())
+        log(f"    for scale: torch.sum reads this design ({d32.numel() * 4 / 2**20:.0f} MiB) in {sum_ms:.4f} ms, "
+            f"{d32.numel() * 4 / sum_ms / 1e9:.3f} TB/s")
+        log(f"  K3 {name} C=16 f32: kernel_ms={k16_ms:.4f} bound_ms={b16_ms:.4f} ({b16_ms / k16_ms:.1%}); "
+            f"{_earlier(f'K3 {name} C=16', k16_ms)}")
+        log(f"    geometry: {_k3_geo_text(c16, d32, E, S)}")
 
     # an empty leading tile, a fully masked event, S a multiple of no tile,
-    # and the same bank as one long row; each dtype against its own plain version
+    # events of an odd length, and the same bank as one long row; each dtype
+    # against its own plain version
     coefs_e, design_e, nlp_e, E, S = k3_edge_case(seed=7, num_chains=16, n_rows=165)
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
         c, d, n = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (coefs_e, design_e, nlp_e))
-        for e, s in ((E, S), (1, E * S)):
+        for e, s in ((E, S), (1, E * S), (E * 20, S // 20)):
             for C in (1, 16):
                 _k3_case(c[:C].contiguous(), d, n, e, s, gen, tol, f"edge bank E={e} S={s} C={C} {str(dtype)[6:]}")
     return out
@@ -1096,7 +1168,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     k3, k3_launches, bspline_ms = bspline_route(args, (pedict, injdict, constants), gen)
 
-    pe, inj = k1["pe"], k1["inj"]
+    pe, inj = k1["flat_pe"], k1["flat_inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
                  "library_ms": None, "flat_route_grad_ms": flat_ms, "streamed_route_grad_ms": streamed_ms}
     kernels = {"kernels": [
@@ -1113,6 +1185,8 @@ def main(argv=None):
             "bound_ms": pe["bound_ms"] + inj["bound_ms"],
             "bound_by": pe["bound_by"],
             "library_ms": pe["library_ms"] + inj["library_ms"],
+            # the unfused B-spline route's two calls (C = 8)
+            "bspline_unfused_ms": k1["bspline_pe"]["ms"] + k1["bspline_inj"]["ms"],
         },
         # one gradient's launches: the PE bank and the injection rows
         dict(k2_common, name="K2 streamed forward", replaces=STREAMED_FWD_KERNEL.replaces,

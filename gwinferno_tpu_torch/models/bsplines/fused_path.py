@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...ops.fused import fused_logweight_logsumexp
+from ...ops.fused import padded_rows
 
 __all__ = ["FusedBSplineLikelihood"]
 
@@ -48,7 +49,9 @@ class FusedBSplineLikelihood:
     def _build_bank(self, d, pe):
         """``(design (K, n), nlp (n,))`` of one bank: the models' cached
         design matrices stacked, plus the ``log1p(z)`` row of ``lamb``; the
-        data-only terms are made in float64 and cast once."""
+        data-only terms are made in float64 and cast once.  The design is a
+        view of rows padded to whole 16-byte vectors (:func:`padded_rows`), so
+        K3 reads every row in aligned 16-byte vectors."""
         idx = 1 if pe else 0
         m1m, qm = self.mass_models.primary_model, self.mass_models.ratio_model
         a1m, a2m = self.mag_model.primary_model, self.mag_model.secondary_model
@@ -70,7 +73,7 @@ class FusedBSplineLikelihood:
             valid = valid & (model._valid_xx if pe else model._valid_xx_inj)
         nlp = np.log(np.asarray(zm.dVdzs[idx], dtype=np.float64)) - np.log1p(z) - np.log(np.asarray(d["prior"], dtype=np.float64))
         nlp = torch.where(valid, torch.as_tensor(nlp, dtype=dtype, device=dev), -torch.inf).reshape(-1)
-        return design.contiguous(), nlp.contiguous()
+        return padded_rows(design), nlp.contiguous()
 
     def _coefs(self, m_cs, q_cs, a_cs, tilt_cs, z_cs, lamb):
         """The stacked coefficients ``(C, K)``."""

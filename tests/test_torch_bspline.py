@@ -388,7 +388,11 @@ def test_get_deterministic_recomputes_the_coefficients(problem, capsys):
 
 
 def test_k3_tile_spreads_long_rows():
-    assert fused.flw_tile(69, 8000, 132) == 1024
-    assert fused.flw_tile(1, 46770, 132) == 256
-    assert fused.flw_tile(1, 10**7, 132) == 4096
-    assert math.ceil(46770 / fused.flw_tile(1, 46770, 132)) >= 132
+    """K3's geometry cuts one long row (the injection bank) into tiles that
+    cover most of the card, as the PE bank's 69 events do, and a longer row
+    into more tiles (C = 8, float32, 2 blocks resident per SM)."""
+    for num_sms in (132, 114):
+        inj = fused.flw_geometry(1, 46770, 8, 165, torch.float32, num_sms, 2)
+        assert inj.blocks >= num_sms and math.ceil(46770 / inj.tile) == inj.blocks
+        assert fused.flw_geometry(1, 10**7, 8, 165, torch.float32, num_sms, 2).n_tiles > inj.n_tiles
+        assert fused.flw_geometry(69, 8000, 8, 165, torch.float32, num_sms, 2).blocks >= num_sms

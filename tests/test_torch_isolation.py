@@ -117,27 +117,41 @@ def test_dlse_cuda_rejects_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_k1_kernel_matches_plain_version_on_the_card():
     """K1 on the card against its plain version (both dtypes, -inf rows,
-    the gradient through the autograd Function)."""
+    the gradient through the autograd Function against the plain version's
+    on every shape), on one block a row and on rows split over many blocks
+    (the injection calls), with row lengths that are not a multiple of the
+    16-byte vector (rows starting unaligned); two launches on the same
+    input give identical bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from gwinferno_tpu_torch.ops.fused import DLSE_KERNEL, _dlse_torch, double_logsumexp
+    from gwinferno_tpu_torch.ops.fused import DLSE_KERNEL, _dlse_torch, dlse_device_geometry, double_logsumexp
 
     g = torch.Generator(device="cuda").manual_seed(0)
     for dtype, tol in ((torch.float32, dict(atol=1e-4, rtol=0.0)), (torch.float64, dict(atol=0.0, rtol=1e-12))):
-        x = 10.0 + 3.0 * torch.randn(48, 5000, generator=g, device="cuda", dtype=dtype)
-        x[2] = -torch.inf
-        x[7, ::3] = -torch.inf
-        before = DLSE_KERNEL.launches
-        got, want = double_logsumexp(x), _dlse_torch(x)
-        assert DLSE_KERNEL.launches == before + 1
-        for a, b in zip(got, want):
-            assert torch.equal(torch.isinf(a), torch.isinf(b))
-            fin = torch.isfinite(b)
-            torch.testing.assert_close(a[fin], b[fin], **tol)
-        xg = x.clone().requires_grad_(True)
-        l1, l2 = double_logsumexp(xg)
-        (grad,) = torch.autograd.grad((l1[torch.isfinite(l1)].sum() + 2 * l2[torch.isfinite(l2)].sum()), xg)
-        assert torch.isfinite(grad).all()
+        for shape in ((48, 5000), (16, 46770), (8, 46770), (5, 4097), (3, 3)):
+            x = 10.0 + 3.0 * torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+            x[2] = -torch.inf
+            x[1, ::3] = -torch.inf
+            before = DLSE_KERNEL.launches
+            got, want = double_logsumexp(x), _dlse_torch(x)
+            assert DLSE_KERNEL.launches == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(torch.isinf(a), torch.isinf(b))
+                fin = torch.isfinite(b)
+                torch.testing.assert_close(a[fin], b[fin], **tol)
+            again = double_logsumexp(x)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            if shape[1] > 40000:
+                assert dlse_device_geometry(x).n_tiles > 1
+            grads = []
+            for fn in (double_logsumexp, _dlse_torch):
+                xg = x.clone().requires_grad_(True)
+                l1, l2 = fn(xg)
+                (grad,) = torch.autograd.grad((l1[torch.isfinite(l1)].sum() + 2 * l2[torch.isfinite(l2)].sum()), xg)
+                grads.append(grad)
+            assert torch.isfinite(grads[0]).all()
+            gtol = 1e-4 if dtype == torch.float32 else 1e-10
+            torch.testing.assert_close(grads[0], torch.nan_to_num(grads[1], nan=0.0), atol=gtol, rtol=0.0)
 
 
 def test_streamed_op_on_cpu_uses_the_plain_versions(monkeypatch):
@@ -257,8 +271,10 @@ def test_flw_cuda_rejects_what_the_kernel_does_not_take():
 def test_k3_kernel_matches_plain_version_on_the_card(num_chains):
     """K3 on the card against its plain version on the edge bank (an empty
     leading tile, a fully masked event, S a multiple of no tile) and as one
-    long row, both dtypes, and the gradient through the autograd Function
-    against the CPU's."""
+    long row split over many blocks, both dtypes, on the contiguous design,
+    on a padded-stride view of it and on events of an odd length (runs
+    straddling tiles and events); two launches give identical bits; and the
+    gradient through the autograd Function against the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import chip_smoke
@@ -267,15 +283,19 @@ def test_k3_kernel_matches_plain_version_on_the_card(num_chains):
     coefs, design, nlp, E, S = chip_smoke.k3_edge_case(seed=2, num_chains=num_chains)
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
         c, d, n = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (coefs, design, nlp))
-        for e, s in ((E, S), (1, E * S)):
-            before = fused.FLW_KERNEL.launches
-            got = fused.flw_cuda(c, d, n, e, s)
-            want = fused._flw_torch(c, d, n, e, s)
-            assert fused.FLW_KERNEL.launches == before + 1
-            for a, b in zip(got, want):
-                assert torch.equal(torch.isinf(a), torch.isinf(b)) and not bool(torch.isnan(a).any())
-                fin = torch.isfinite(b)
-                assert float((a[fin] - b[fin]).abs().max()) <= tol
+        for e, s in ((E, S), (1, E * S), (E * 4, S // 4), (E * 20, S // 20)):
+            for dd in (d, fused.padded_rows(d)):
+                before = fused.FLW_KERNEL.launches
+                got = fused.flw_cuda(c, dd, n, e, s)
+                want = fused._flw_torch(c, d, n, e, s)
+                assert fused.FLW_KERNEL.launches == before + 1
+                for a, b in zip(got, want):
+                    assert torch.equal(torch.isinf(a), torch.isinf(b)) and not bool(torch.isnan(a).any())
+                    fin = torch.isfinite(b)
+                    assert float((a[fin] - b[fin]).abs().max()) <= tol
+                again = fused.flw_cuda(c, dd, n, e, s)
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert fused.flw_device_geometry(c, d, 1, E * S).n_tiles > 1
     grads = []
     for dev in ("cuda", "cpu"):
         ct = torch.tensor(coefs, device=dev, requires_grad=True)
