@@ -47,14 +47,29 @@ and with its wall time as it ends:
    evaluation on a slice of the catalog, then
    an 8-chain NUTS run on the fused route through ``run_bspline_analysis``
    (target 0.9, diagonal mass, depth 6);
-8. the kernels line (one JSON object), then the contract line
+8. the config route: the model of ``examples/config_files/config_validation.yml``
+   (its parsed form, ``CONFIG_VALIDATION``: smoothed-break powerlaw m1,
+   powerlaw q, powerlaw redshift, the ``min_neff`` cut and the
+   posterior-predictive sites) built by ``ConfigReader.parse_dict`` and
+   ``construct_hierarchical_model`` on the same catalog, its potential and
+   gradient for 4 and 16 chains against a float64 CPU evaluation on a slice
+   of the catalog, both timed and profiled, then the config's sampler block
+   (NUTS, dense mass, 4 chains, depth 6) through the CLI's in-memory
+   ``run_config``: summary, the CLI's four deterministic sites and one
+   posterior-predictive site, all finite;
+9. the kernels line (one JSON object), then the contract line
    ``{"ok": true, "device": {...}}``, last on stdout.
 
-Launch counts are set to 0 just before each route is driven (the flat
-route's gradients and NUTS run; the streamed route's NUTS run; the B-spline
-route's ``run_bspline_analysis``) and read just after: K1's from the flat
-route, K2's from the streamed route (where K1 must not run), K3's from the
-B-spline route (where K1 must not run either).
+K1 is also held against its plain version at the config route's shapes
+``(276, 8000)`` and ``(4, 46770)`` in phase 3.  Launch counts are set to 0
+just before each route is driven (the flat route's gradients and NUTS run;
+the streamed route's NUTS run; the B-spline route's
+``run_bspline_analysis``; the config route's ``run_config`` and its
+posterior-predictive site) and read just after: K1's from the flat route,
+K2's from the streamed route (where K1 must not run), K3's from the B-spline
+route (where K1 must not run either), K1's again from the config route,
+where it must launch exactly twice per model evaluation and K2 and K3 not
+at all.
 
 Any failure raises, with a traceback and a non-zero exit code; no phase
 catches its own failure.  Without CUDA the script exits non-zero before
@@ -106,7 +121,13 @@ from gwinferno_tpu_torch.pipeline.bspline_model import build_bspline_models  # n
 from gwinferno_tpu_torch.pipeline.bspline_model import model_from_args  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import run_bspline_analysis  # noqa: E402
 from gwinferno_tpu_torch import ppl  # noqa: E402
+from gwinferno_tpu_torch.pipeline.cli import DETERMINISTIC_SITES  # noqa: E402
+from gwinferno_tpu_torch.pipeline.cli import model_from_reader  # noqa: E402
+from gwinferno_tpu_torch.pipeline.cli import run_config  # noqa: E402
+from gwinferno_tpu_torch.pipeline.parser import ConfigReader  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import to_tensors  # noqa: E402
 from gwinferno_tpu_torch.ppl import ModelPotential  # noqa: E402
+from gwinferno_tpu_torch.ppl.handlers import Messenger  # noqa: E402
 from gwinferno_tpu_torch.ppl.infer_util import find_valid_initial_params  # noqa: E402
 
 # the committed catalog's size and attributes (tests/data/pe_inj_synthetic.h5)
@@ -149,6 +170,62 @@ K2_FWD_OPS, K2_BWD_OPS = 60, 140
 BSPLINE_KNOTS = dict(m_nsplines=50, q_nsplines=30, a_nsplines=16, tilt_nsplines=16, z_nsplines=20)
 BSPLINE_MMIN, BSPLINE_MMAX = 3.0, 100.0
 BSPLINE_CHAINS = 8
+
+# the parsed form of examples/config_files/config_validation.yml (the
+# card's machine has no PyYAML; tests/test_torch_config.py holds this dict
+# to the file)
+CONFIG_VALIDATION = {
+    "label": "config_cli_validation",
+    "outdir": "docs/config_cli_r5/run",
+    "models": {
+        "mass_1": {
+            "model": "gwinferno.numpyro_distributions.PowerlawSmoothedPowerlaw",
+            "hyper_params": {
+                "alpha": {"prior": "numpyro.distributions.Normal", "prior_params": {"loc": 0.0, "scale": 3.0}},
+                "minimum": {"prior": "numpyro.distributions.Uniform", "prior_params": {"low": 3.0, "high": 20.0}},
+                "maximum": {"prior": "numpyro.distributions.Uniform", "prior_params": {"low": 40.0, "high": 95.0}},
+                "alpha_min": {"prior": "numpyro.distributions.Uniform", "prior_params": {"low": 0.0, "high": 6.0}},
+                "alpha_max": {"prior": "numpyro.distributions.Uniform", "prior_params": {"low": 3.0, "high": 25.0}},
+                "low": {"value": 2.0},
+                "high": {"value": 100.0},
+            },
+        },
+        "mass_ratio": {
+            "model": "gwinferno.numpyro_distributions.Powerlaw",
+            "hyper_params": {
+                "alpha": {"prior": "numpyro.distributions.Normal", "prior_params": {"loc": 0.0, "scale": 3.0}},
+                "minimum": {"value": 0.02},
+                "maximum": {"value": 1.0},
+            },
+        },
+        "redshift": {
+            "model": "gwinferno.numpyro_distributions.PowerlawRedshift",
+            "hyper_params": {
+                "lamb": {"prior": "numpyro.distributions.Normal", "prior_params": {"loc": 0.0, "scale": 3.0}},
+                "maximum": {"value": 2.3},
+            },
+        },
+    },
+    "sampler": {
+        "kernel": "NUTS",
+        "kernel_kwargs": {"dense_mass": True},
+        "mcmc_kwargs": {"num_warmup": 500, "num_samples": 500, "num_chains": 4, "max_steps_per_call": 25},
+    },
+    "likelihood": {
+        "marginalize_selection": False, "min_neff_cut": True, "max_variance_cut": False,
+        "posterior_predictive_check": True,
+    },
+    "data": {"pe_inj_file": "tests/data/pe_inj_config_val.h5"},
+}
+# the config route's starts: the catalog's population in the config model's
+# terms (TRUTH's powerlaw slope, breaks bracketing its peak, its q slope and
+# redshift evolution), jittered per chain by the half-widths beside them
+CONFIG_INIT = {
+    "mass_1_alpha": (-2.35, 0.3), "mass_1_minimum": (8.0, 1.0), "mass_1_maximum": (70.0, 5.0),
+    "mass_1_alpha_min": (2.0, 0.5), "mass_1_alpha_max": (10.0, 2.0), "mass_ratio_alpha": (1.0, 0.3),
+    "redshift_lamb": (1.7, 0.5), "unscaled_rate": (69.0, 10.0),
+}
+CONFIG_CHAINS = (4, 16)
 
 # synthetic search: proxy SNR ~ Mc_det^(5/6) / DL with a random projection
 D0_MPC = 1600.0
@@ -407,7 +484,8 @@ def _earlier(key, ms):
 
 def check_k1(gen):
     """K1 against its plain version on the flat route's shapes (C = 16), the
-    unfused B-spline route's (C = 8) and two edge shapes, float32 and
+    unfused B-spline route's (C = 8), the config route's (C = 4) and two
+    edge shapes, float32 and
     float64, gradient included; two launches on the same input must give
     identical bits.  At the main path's shapes, float32: kernel, plain,
     library and bound times beside the earlier design's, the geometry and
@@ -415,6 +493,7 @@ def check_k1(gen):
     main_shapes = [
         ("flat_pe", (N_CHAINS * N_EVENTS, N_SAMPLES)), ("flat_inj", (N_CHAINS, N_FOUND)),
         ("bspline_pe", (BSPLINE_CHAINS * N_EVENTS, N_SAMPLES)), ("bspline_inj", (BSPLINE_CHAINS, N_FOUND)),
+        ("config_pe", (CONFIG_CHAINS[0] * N_EVENTS, N_SAMPLES)), ("config_inj", (CONFIG_CHAINS[0], N_FOUND)),
     ]
     extra_shapes = [("all_-inf_rows", (8, 1000)), ("part_-inf_rows", (64, 3000))]
     tol = {torch.float32: dict(atol=1e-4, rtol=0.0), torch.float64: dict(atol=0.0, rtol=1e-12)}
@@ -1131,6 +1210,151 @@ def bspline_route(args, catalog, gen):
     return k3, bspline_nuts(pedict, injdict, constants, bargs), ms
 
 
+# ----------------------------------------------------------------- config route (K1)
+
+
+class ModelRuns(Messenger):
+    """Counts the model's runs: each run adds the ``log_likelihood`` factor
+    once (a gradient, a probe, a batch of deterministic sites)."""
+
+    def __init__(self):
+        super().__init__()
+        self.runs = 0
+
+    def process_message(self, msg):
+        if msg["type"] == "sample" and msg["name"] == "log_likelihood":
+            self.runs += 1
+
+
+def config_reader(num_warmup=None, num_samples=None):
+    """A :class:`ConfigReader` of ``CONFIG_VALIDATION``, its sampler block
+    cut to the smoke's transitions and depth."""
+    conf = json.loads(json.dumps(CONFIG_VALIDATION))
+    if num_warmup is not None:
+        conf["sampler"]["mcmc_kwargs"].update(num_warmup=num_warmup, num_samples=num_samples)
+        conf["sampler"]["kernel_kwargs"]["max_tree_depth"] = MAX_TREE_DEPTH
+    reader = ConfigReader()
+    reader.parse_dict(conf)
+    return reader
+
+
+def config_init(num_chains, gen):
+    """``CONFIG_INIT`` jittered per chain, float64 on the generator's device."""
+    u = torch.rand(len(CONFIG_INIT), num_chains, generator=gen, device=gen.device, dtype=torch.float64)
+    return {k: c + w * (2.0 * u[i] - 1.0) for i, (k, (c, w)) in enumerate(CONFIG_INIT.items())}
+
+
+def config_potential(pedict, injdict, constants, device, dtype):
+    """The config model's potential on the catalog, on ``device`` in ``dtype``."""
+    args = (to_tensors(pedict, device, dtype), to_tensors(injdict, device, dtype), constants["total_inj"],
+            constants["nObs"], constants["obs_time"])
+    return ModelPotential(model_from_reader(config_reader()), args, device=device, dtype=dtype)
+
+
+def check_config_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=10000):
+    """The config route's float32 potential and gradient on the card against
+    a float64 CPU evaluation (K1's plain version) on a slice of the catalog,
+    as :func:`check_against_cpu` does for the flat route."""
+    pe = {k: v[:n_events] for k, v in pedict.items()}
+    inj = {k: v[:n_found] for k, v in injdict.items()}
+    const = dict(constants, nObs=n_events)
+    C = next(iter(params.values())).shape[0]
+    out = []
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        pot = config_potential(pe, inj, const, dev, dtype)
+        z = pot.unconstrain({k: v.to(dev, dtype) for k, v in params.items()}, C)
+        out.append([t.double().cpu() for t in pot.value_and_grad(z)])
+    (u32, g32), (u64, g64) = out
+    if not (torch.isfinite(u64).all() and (u64.abs() < 1e30).all()):
+        raise AssertionError(f"reference potential off the likelihood walls expected, got {u64}")
+    torch.testing.assert_close(u32, u64, rtol=1e-4, atol=1e-3)
+    rel = float((g32 - g64).norm() / g64.norm())
+    if not rel < 1e-3:
+        raise AssertionError(f"float32 card gradient differs from the float64 CPU one: relative error {rel:.3e}")
+    log(f"  C={C}: card f32 vs CPU f64 on {n_events} events x {N_SAMPLES} + {n_found} injections: "
+        f"max|dU|={float((u32 - u64).abs().max()):.3e}, grad rel err={rel:.3e}")
+
+
+def config_gradients(pedict, injdict, constants, gen):
+    """The config route's potential and gradient for each of
+    ``CONFIG_CHAINS``: against the CPU, timed (CUDA events, median of 10)
+    and profiled.  Returns ``{C: ms}``."""
+    ms = {}
+    with phase("config route: model build"):
+        pot = config_potential(pedict, injdict, constants, "cuda", torch.float32)
+        torch.cuda.synchronize()
+        log(f"  sites {pot.names} ({pot.dim} unconstrained coordinates)")
+    for C in CONFIG_CHAINS:
+        params = config_init(C, gen)
+        with phase(f"config route: reference check, C={C}"):
+            check_config_against_cpu(pedict, injdict, constants, params)
+        with phase(f"config route: potential + gradient, C={C}"):
+            z = pot.unconstrain({k: v.float() for k, v in params.items()}, C)
+            u, g = pot.value_and_grad(z)
+            if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all()) and bool((u.abs() < 1e30).all())):
+                raise AssertionError(f"config route: potential or gradient not finite or on a wall at C={C}: {u}")
+            ms[C] = float(np.median([call_ms(lambda: pot.value_and_grad(z)) for _ in range(10)]))
+            log(f"  one batched potential + gradient at C={C}: {ms[C]:.3f} ms (CUDA events around each call, "
+                "median of 10)")
+        with phase(f"config route: profile, C={C}"):
+            profile_routes({f"config C={C}": pot}, z)
+    return ms
+
+
+def config_nuts(pedict, injdict, constants, args):
+    """The config's sampler block through the CLI's ``run_config`` (NUTS,
+    dense mass, 4 chains, ``--warmup`` + ``--samples`` transitions, depth
+    6), then one posterior-predictive site, with the K1, K2 and K3 launch
+    counts zeroed just before and read just after; K1 must launch twice per
+    model run and K2 and K3 never.  Returns the K1 launches."""
+    reader = config_reader(args.warmup, args.samples)
+    n_chains = reader.sampler_conf["mcmc_kwargs"]["num_chains"]
+    ppc_site = "mass_1_obs_event_0"
+    DLSE_KERNEL.launches = STREAMED_FWD_KERNEL.launches = STREAMED_BWD_KERNEL.launches = FLW_KERNEL.launches = 0
+    with phase(f"config route: NUTS through run_config, {args.warmup} warmup + {args.samples} samples, "
+               f"{n_chains} chains, dense mass, depth {MAX_TREE_DEPTH}"), ModelRuns() as runs:
+        t0 = time.perf_counter()
+        mcmc, posterior = run_config(reader, pedict, injdict, constants, rng_seed=args.seed, device="cuda",
+                                     dtype=torch.float32)
+        wall = time.perf_counter() - t0
+        runs_run = runs.runs
+        ppc = mcmc.get_deterministic(site_names={ppc_site})
+        torch.cuda.synchronize()
+    n_k1 = DLSE_KERNEL.launches
+    others = (STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, FLW_KERNEL.launches)
+    log(f"  launches on the config route: K1 {n_k1} over {runs.runs} model runs ({runs_run} in run_config, "
+        f"{runs.runs - runs_run} for the posterior-predictive site); K2 forward, K2 backward, K3: {others}")
+    if n_k1 != 2 * runs.runs or n_k1 == 0:
+        raise AssertionError(f"K1 launched {n_k1} times over {runs.runs} model runs; two a run expected")
+    if any(others):
+        raise AssertionError(f"K2 or K3 ran on the config route: {others}")
+    n_draws = args.samples * n_chains
+    want = set(mcmc.get_samples()) | set(DETERMINISTIC_SITES)
+    if set(posterior) != want:
+        raise AssertionError(f"config posterior has {sorted(posterior)}, want {sorted(want)}")
+    for k, v in {**posterior, **ppc}.items():
+        if tuple(v.shape) != (n_draws,) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"config route, site {k}: values of shape {tuple(v.shape)} not finite")
+    extra = mcmc.get_extra_fields()
+    log(f"  wall {wall:.2f} s for run_config (init {mcmc.timings['init']:.2f} s, warmup "
+        f"{mcmc.timings.get('warmup', 0.0):.2f} s, sampling {mcmc.timings['sample']:.2f} s); mean tree depth "
+        f"{float(extra['tree_depth'].double().mean()):.2f}, divergences {int(extra['diverging'].sum())}, "
+        f"mean accept {float(extra['accept_prob'].mean()):.3f}, leapfrogs in sampling {int(extra['num_steps'].sum())}")
+    log(f"  {len(posterior)} posterior sites and {ppc_site} finite; posterior means "
+        + ", ".join(f"{k}={float(v.double().mean()):.3f}" for k, v in sorted(posterior.items())))
+    return n_k1
+
+
+def config_route(args, catalog, gen):
+    """The config-driven route: ``CONFIG_VALIDATION``'s model on the catalog,
+    its gradient checked, timed and profiled, then its sampler block.
+    Returns ``(K1 launches, {C: gradient ms})``."""
+    pedict, injdict, constants = catalog
+    ms = config_gradients(pedict, injdict, constants, gen)
+    torch.cuda.empty_cache()
+    return config_nuts(pedict, injdict, constants, args), ms
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1167,6 +1391,8 @@ def main(argv=None):
     del model_s, flat_potential
     torch.cuda.empty_cache()
     k3, k3_launches, bspline_ms = bspline_route(args, (pedict, injdict, constants), gen)
+    torch.cuda.empty_cache()
+    config_launches, config_ms = config_route(args, (pedict, injdict, constants), gen)
 
     pe, inj = k1["flat_pe"], k1["flat_inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
@@ -1187,6 +1413,14 @@ def main(argv=None):
             "library_ms": pe["library_ms"] + inj["library_ms"],
             # the unfused B-spline route's two calls (C = 8)
             "bspline_unfused_ms": k1["bspline_pe"]["ms"] + k1["bspline_inj"]["ms"],
+            # the config route: its two calls at C = 4 (kernel, plain, library,
+            # bound), its launches over the NUTS run, its gradient at C = 4, 16
+            "config_ms": k1["config_pe"]["ms"] + k1["config_inj"]["ms"],
+            "config_plain_ms": k1["config_pe"]["plain_ms"] + k1["config_inj"]["plain_ms"],
+            "config_library_ms": k1["config_pe"]["library_ms"] + k1["config_inj"]["library_ms"],
+            "config_bound_ms": k1["config_pe"]["bound_ms"] + k1["config_inj"]["bound_ms"],
+            "config_route_launches": config_launches,
+            "config_route_grad_ms": {str(C): v for C, v in config_ms.items()},
         },
         # one gradient's launches: the PE bank and the injection rows
         dict(k2_common, name="K2 streamed forward", replaces=STREAMED_FWD_KERNEL.replaces,

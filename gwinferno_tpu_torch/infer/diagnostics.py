@@ -1,4 +1,5 @@
-"""Convergence diagnostics: effective sample size and split R-hat.
+"""Convergence diagnostics: effective sample size, split R-hat, the HPDI and
+the posterior summary.
 
 Counterpart of ``gwinferno_tpu/infer/diagnostics.py`` (FFT autocorrelation
 ESS with Geyer's initial monotone sequence; split R-hat), on host numpy.
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["effective_sample_size", "split_rhat"]
+__all__ = ["effective_sample_size", "split_rhat", "hpdi", "summary", "print_summary"]
 
 
 def _host(x):
@@ -73,3 +74,51 @@ def split_rhat(x):
     if W <= 0:
         return np.nan
     return float(np.sqrt(((half - 1) / half * W + B / half) / W))
+
+
+def hpdi(x, prob=0.9):
+    """Highest posterior density interval ``(lo, hi)`` of 1-D draws: the
+    narrowest window holding ``floor(prob * n)`` sorted draws."""
+    x = np.sort(_host(x).ravel())
+    n = len(x)
+    size = max(1, int(np.floor(prob * n)))
+    i = int(np.argmin(x[size:] - x[: n - size]))
+    return x[i], x[i + size]
+
+
+def summary(samples_by_chain, prob=0.9):
+    """``{label: {statistic: value}}`` for samples ``{site: (chains, n,
+    *event)}``: one row per site and event element (``name[i,j]``) with the
+    mean, std, median, HPDI bounds, ESS and split R-hat."""
+    rows = {}
+    for name, arr in samples_by_chain.items():
+        arr = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+        ev_shape = arr.shape[2:]
+        for idx in [()] if ev_shape == () else list(np.ndindex(*ev_shape)):
+            cell = arr[(slice(None), slice(None)) + idx]
+            label = name if idx == () else f"{name}[{','.join(map(str, idx))}]"
+            lo, hi = hpdi(cell, prob)
+            rows[label] = {
+                "mean": float(cell.mean()),
+                "std": float(cell.std()),
+                "median": float(np.median(cell)),
+                f"{prob:.0%} hpdi lo": float(lo),
+                f"{prob:.0%} hpdi hi": float(hi),
+                "n_eff": effective_sample_size(cell),
+                "r_hat": split_rhat(cell),
+            }
+    return rows
+
+
+def print_summary(samples_by_chain, prob=0.9):
+    """Print :func:`summary` as a table to stdout."""
+    rows = summary(samples_by_chain, prob)
+    if not rows:
+        print("(no samples)")
+        return
+    cols = list(next(iter(rows.values())).keys())
+    name_w = max(12, max(len(k) for k in rows))
+    print(" ".join([f"{'':>{name_w}}"] + [f"{c:>12}" for c in cols]))
+    for name, stats in rows.items():
+        vals = " ".join(f"{v:12.3f}" if np.isfinite(v) else f"{'nan':>12}" for v in stats.values())
+        print(f"{name:>{name_w}} {vals}")

@@ -17,6 +17,7 @@ from ..device import resolve_device
 from ..ppl import handlers
 from ..ppl.infer_util import ModelPotential
 from ..ppl.infer_util import find_valid_initial_params
+from .diagnostics import print_summary
 from .hmc_util import build_warmup_schedule
 from .hmc_util import da_init
 from .hmc_util import da_update
@@ -43,10 +44,19 @@ class MCMC:
     with ``rng_seed``.  ``init_params`` maps site names to constrained
     values, site-shaped or with a leading ``(num_chains,)`` axis; without it
     the chains start from :func:`find_valid_initial_params`.
+
+    ``max_steps_per_call`` (None or a positive int) is accepted because the
+    configs set it.  In the JAX package it cuts the fused scan into host
+    calls of that many transitions and leaves the results unchanged; this
+    loop already takes one transition per host step, so it changes nothing.
     """
 
     def __init__(self, kernel, num_warmup=500, num_samples=1500, num_chains=1, thinning=1,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, max_steps_per_call=None):
+        if max_steps_per_call is not None and (int(max_steps_per_call) != max_steps_per_call
+                                               or max_steps_per_call < 1):
+            raise ValueError(f"max_steps_per_call must be None or a positive integer, got {max_steps_per_call!r}")
+        self.max_steps_per_call = max_steps_per_call
         self.kernel = kernel
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
@@ -149,7 +159,10 @@ class MCMC:
         samples, ``batch_size`` draws at a time (the model is chain-batched,
         so a batch of draws runs as a batch of chains).  Returns ``{name:
         (num_samples * num_chains, ...)}`` in :meth:`get_samples`' order;
-        ``site_names`` keeps only those names.  Prints nothing."""
+        ``site_names`` keeps only those names, and the model computes its
+        costly optional sites (the posterior-predictive draws) only when
+        they are among them (:class:`~gwinferno_tpu_torch.ppl.handlers.collect_deterministic`).
+        Prints nothing."""
         samples = self.get_samples()
         pot = self._potential
         n = next(iter(samples.values())).shape[0]
@@ -158,7 +171,8 @@ class MCMC:
             for start in range(0, n, batch_size):
                 chunk = {k: v[start : start + batch_size] for k, v in samples.items()}
                 b = next(iter(chunk.values())).shape[0]
-                with handlers.trace() as tr, handlers.substitute(data=chunk):
+                with handlers.trace() as tr, handlers.substitute(data=chunk), \
+                        handlers.collect_deterministic(site_names=site_names):
                     pot.model(*pot.model_args, **pot.model_kwargs)
                 out = {}
                 for name, site in tr.trace.items():
@@ -168,3 +182,9 @@ class MCMC:
                     out[name] = v if v.ndim > 0 and v.shape[0] == b else v.expand((b,) + tuple(v.shape))
                 chunks.append(out)
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]} if chunks else {}
+
+    def print_summary(self, prob=0.9):
+        """Print the posterior summary (mean, std, median, HPDI, ESS, split
+        R-hat per site and element) and the number of divergences."""
+        print_summary(self.get_samples(group_by_chain=True), prob=prob)
+        print(f"\nNumber of divergences: {int(self._extra['diverging'].sum())}")

@@ -1,4 +1,5 @@
-"""Hierarchical population likelihood with selection-effect correction.
+"""Hierarchical population likelihood with selection-effect correction, and
+the config-driven hierarchical model.
 
 Counterpart of ``gwinferno_tpu/pipeline/analysis.py`` on the log path (the
 weights are log-weights throughout, so float32 never squares a linear
@@ -9,15 +10,37 @@ Both reductions go through K1 (:func:`gwinferno_tpu_torch.ops.fused.double_logsu
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from .. import ppl
+from ..cosmology import PLANCK_2015_LVK_Cosmology
+from ..infer import NUTS
 from ..ops.fused import double_logsumexp
+from ..population_distributions import PowerlawRedshift
+from ..population_distributions import interp
 from ..ppl import distributions as dist
+from .parser import PopMixtureModel
+from .parser import PopModel
+from .parser import PopPrior
 
-__all__ = ["per_event_log_bayes_factors", "detection_efficiency", "hierarchical_likelihood"]
+__all__ = [
+    "NP_KERNEL_MAP",
+    "per_event_log_bayes_factors",
+    "detection_efficiency",
+    "hierarchical_likelihood",
+    "construct_hierarchical_model",
+]
+
+
+def _hmc_not_ported(*args, **kwargs):
+    raise NotImplementedError("the HMC kernel is not ported yet (ROADMAP M9); use NUTS")
+
+
+NP_KERNEL_MAP = {"NUTS": NUTS, "HMC": _hmc_not_ported}
 
 
 def per_event_log_bayes_factors(log_weights):
@@ -89,12 +112,18 @@ def hierarchical_likelihood(
     ``inj_summaries=(log_mu, log_n_eff_inj)`` take reductions computed
     upstream (the streamed op, ``ops/streamed.py``, or K3 through
     ``FusedBSplineLikelihood``) in place of the weight banks, which may then
-    be None.  Categorical subpopulations and the posterior-predictive draws
-    are not ported; they raise.  ``param_names``, ``pedata``, ``injdata``,
-    ``m1min``, ``m2min`` and ``mmax`` feed only the posterior-predictive
-    draws and are unused.  The port has the log path only, so ``log``
-    defaults to True; ``log=False`` (linear weight banks, the JAX package's
-    default) raises.
+    be None.  Categorical subpopulations are not ported; they raise.
+
+    ``posterior_predictive_check`` with ``param_names``, ``pedata`` and
+    ``injdata`` adds the sites ``{p}_obs_event_{i}`` and
+    ``{p}_pred_event_{i}`` (see :func:`_posterior_predictive_sites`), but
+    only in a run whose deterministic sites are read
+    (:class:`~gwinferno_tpu_torch.ppl.handlers.collect_deterministic`, as
+    ``MCMC.get_deterministic`` runs the model): the density does not depend
+    on them, so a potential's gradient never draws them, as the JAX
+    package's compiled gradient drops them.  The port has the log path only,
+    so ``log`` defaults to True; ``log=False`` (linear weight banks, the JAX
+    package's default) raises.
     """
     if max_variance_cut and (marginalize_selection or min_neff_cut):
         raise ValueError(
@@ -107,8 +136,8 @@ def hierarchical_likelihood(
         raise ValueError("pe_summaries (the fused seam) cannot be combined with categorical subpopulations")
     if (pe_summaries is not None or inj_summaries is not None) and posterior_predictive_check:
         raise ValueError("posterior_predictive_check needs the raw weight banks; disable it on the fused path")
-    if categorical or posterior_predictive_check:
-        raise NotImplementedError("categorical subpopulations and posterior-predictive draws are not ported")
+    if categorical:
+        raise NotImplementedError("categorical subpopulations are not ported")
     if not log and (pe_summaries is None or inj_summaries is None):
         raise NotImplementedError("the linear-weight path (log=False) is not ported; pass log-weights with log=True")
 
@@ -155,4 +184,241 @@ def hierarchical_likelihood(
         log_l = ppl.deterministic("variance_less_1", torch.where(variance <= 1.0, log_l, floor))
 
     ppl.factor("log_likelihood", log_l)
+
+    if posterior_predictive_check and param_names is not None and injdata is not None and pedata is not None:
+        n_events = pe_weights.shape[-2]
+        names = (f"{p}_{kind}_event_{ev}" for ev in range(n_events) for p in param_names for kind in ("obs", "pred"))
+        if ppl.deterministic_requested(names):
+            _posterior_predictive_sites(pe_weights, inj_weights, pedata, injdata, param_names,
+                                        m1min=m1min, m2min=m2min, mmax=mmax)
     return rate
+
+
+@functools.lru_cache(maxsize=8)
+def _event_uniforms(n_events):
+    """``(n_events, 2)`` float64 uniforms on the host: row ``ev`` from a
+    generator seeded with ``ev`` (the JAX package's ``PRNGKey(ev)``), for
+    the observed and the predicted draw of event ``ev``."""
+    return torch.stack([torch.rand(2, generator=torch.Generator().manual_seed(ev), dtype=torch.float64)
+                        for ev in range(n_events)])
+
+
+def _choice(log_weights, mask, u):
+    """Inverse-cdf draws from the rows of ``log_weights`` ``(..., N)`` (zero
+    weight where ``mask``): for each uniform of ``u`` (broadcast against the
+    rows' batch shape on a new last axis), the first index whose cumulative
+    weight reaches ``total * (1 - u)``, as ``jax.random.choice`` with ``p``
+    does.  Returns ``(..., M)`` indices."""
+    w = torch.exp(log_weights - log_weights.amax(-1, keepdim=True))
+    cum = torch.cumsum(torch.where(mask, 0.0, w), dim=-1)
+    r = cum[..., -1:] * (1.0 - u)
+    return torch.searchsorted(cum, r.contiguous()).clamp_max(cum.shape[-1] - 1)
+
+
+def _posterior_predictive_sites(pe_weights, inj_weights, pedata, injdata, param_names, m1min=5.0, m2min=3.0,
+                                mmax=100.0):
+    """Reweighted observed and predicted draws per event, as deterministic
+    sites ``{p}_obs_event_{i}`` and ``{p}_pred_event_{i}`` (each ``(C,)``).
+
+    For event ``i`` the observed draw picks one of its PE samples with
+    probability proportional to its weight, the predicted draw one found
+    injection with probability proportional to the injection weights; samples
+    with ``mass_1`` outside ``[m1min, mmax]`` or ``mass_1 * mass_ratio <
+    m2min`` weigh 0.  Event ``i``'s two uniforms are fixed
+    (:func:`_event_uniforms`), so the draws are deterministic given the
+    weights, as the JAX package's fixed ``PRNGKey(i)`` makes them.
+    """
+
+    def masked(d):
+        m1 = d["mass_1"]
+        return (m1 < m1min) | (m1 > mmax) | (m1 * d["mass_ratio"] < m2min)
+
+    n_events = pe_weights.shape[-2]
+    u = _event_uniforms(n_events).to(pe_weights.device, pe_weights.dtype)
+    obs_idx = _choice(pe_weights, masked(pedata), u[:, :1])[..., 0]  # (C, E)
+    pred_idx = _choice(inj_weights, masked(injdata), u[:, 1])  # (C, E)
+    events = torch.arange(n_events, device=obs_idx.device)
+    for p in param_names:
+        obs, pred = pedata[p][events, obs_idx], injdata[p][pred_idx]
+        for ev in range(n_events):
+            ppl.deterministic(f"{p}_obs_event_{ev}", obs[..., ev])
+            ppl.deterministic(f"{p}_pred_event_{ev}", pred[..., ev])
+
+
+def _plan_hyperpriors(prior_dict):
+    """Split the flat hyperprior dict into sample-site specs ``(name, class,
+    kwargs)`` and pinned constants.  Any object with ``.dist`` and
+    ``.params`` is a prior spec, as in the JAX package."""
+    sites, pinned = [], {}
+    for name, spec in prior_dict.items():
+        if isinstance(spec, PopPrior) or (hasattr(spec, "dist") and hasattr(spec, "params")):
+            sites.append((name, spec.dist, spec.params))
+        else:
+            pinned[name] = spec
+    return sites, pinned
+
+
+def _plan_population_builders(model_dict):
+    """Each config block as a builder ``(hypers, redshift_kwargs) ->
+    distribution``, the site names resolved here; iid aliases as
+    ``(alias, source)`` pairs (the alias reuses the source's distribution).
+    The redshift block's class gets ``redshift_kwargs`` (the z grid, and its
+    dVc/dz for :class:`PowerlawRedshift`), as the JAX package passes it the
+    grid."""
+    builders, aliases = [], []
+    for param, spec in model_dict.items():
+        if isinstance(spec, PopMixtureModel):
+            comp_keys = [
+                (cls, [(f"{param}_component_{i + 1}_{hp}", hp) for hp in hps])
+                for i, (cls, hps) in enumerate(zip(spec.components, spec.component_params))
+            ]
+            mix_keys = [(f"{param}_mixture_dist_{hp}", hp) for hp in spec.mixing_params]
+
+            def build_mixture(hypers, redshift_kwargs, spec=spec, comp_keys=comp_keys, mix_keys=mix_keys):
+                comps = [cls(**{hp: hypers[key] for key, hp in keys}) for cls, keys in comp_keys]
+                mixing = spec.mixing_dist(**{hp: hypers[key] for key, hp in mix_keys})
+                return spec.model(mixing, comps)
+
+            builders.append((param, build_mixture))
+        elif isinstance(spec, PopModel):
+            keys = [(f"{param}_{hp}", hp) for hp in spec.params]
+            is_z = param == "redshift"
+
+            def build_single(hypers, redshift_kwargs, spec=spec, keys=keys, is_z=is_z):
+                extra = {}
+                if is_z:
+                    extra["grid"] = redshift_kwargs["grid"]
+                    if isinstance(spec.model, type) and issubclass(spec.model, PowerlawRedshift):
+                        extra["dVcdz"] = redshift_kwargs["dVcdz"]
+                return spec.model(**{hp: hypers[key] for key, hp in keys}, **extra)
+
+            builders.append((param, build_single))
+        elif isinstance(spec, str):
+            aliases.append((param, spec))
+        else:
+            raise ValueError(f"Unknown model type: {type(spec)}:{spec}")
+    return builders, aliases
+
+
+def _on(v, device, dtype):
+    """A constant on the model's device and dtype: tensors are moved, numbers
+    stay numbers."""
+    return v.to(device=device, dtype=dtype) if isinstance(v, torch.Tensor) else v
+
+
+class HierarchicalModel:
+    """The model :func:`construct_hierarchical_model` returns: call it as
+    ``model(samps, injs, Ninj, Nobs, Tobs)`` with the PE banks ``{param:
+    (E, S)}`` and the found injections ``{param: (N,)}`` as tensors on one
+    device in one dtype (``prior`` among the keys).
+
+    Its constants (pinned values, hyperprior distributions, the redshift
+    grid and its dVc/dz) are made on the banks' device and dtype at the
+    first call on them; the data-only terms of a bank (``-log prior`` and,
+    for :class:`PowerlawRedshift`, dVc/dz at its redshifts) are made once per
+    bank.  Per call it samples the hyperpriors (``(C,)`` per site), builds
+    the population distributions and sums their :func:`population_log_prob`
+    into log-weights ``(C, E, S)`` and ``(C, N)`` for
+    :func:`hierarchical_likelihood`.
+    """
+
+    def __init__(self, model_dict, prior_dict, likelihood_kwargs):
+        self.source_params = tuple(model_dict)
+        self.z_max = float(prior_dict["redshift_maximum"]) if "redshift" in model_dict else None
+        self.sites, self.pinned = _plan_hyperpriors(prior_dict)
+        for _, cls, kwargs in self.sites:
+            cls(**kwargs)  # malformed prior parameters raise here, on the host
+        self.builders, self.aliases = _plan_population_builders(model_dict)
+        self.likelihood_kwargs = likelihood_kwargs
+        self._consts = {}
+        self._banks = {}
+
+    def _constants(self, device, dtype):
+        key = (device, dtype)
+        if key not in self._consts:
+            consts = {
+                "pinned": {k: _on(v, device, dtype) for k, v in self.pinned.items()},
+                "priors": [(name, cls(**{k: _on(v, device, dtype) for k, v in kw.items()}))
+                           for name, cls, kw in self.sites],
+                "redshift": None,
+            }
+            if self.z_max is not None:
+                z = np.linspace(1e-9, self.z_max, 1000)
+                consts["redshift"] = {
+                    "grid": torch.linspace(1e-9, self.z_max, 1000, dtype=dtype, device=device),
+                    "dVcdz": torch.as_tensor(PLANCK_2015_LVK_Cosmology.dVcdz(z), dtype=dtype, device=device),
+                }
+            self._consts[key] = consts
+        return self._consts[key]
+
+    def _bank_terms(self, data, redshift):
+        """``(-log prior, dVc/dz at the bank's redshifts or None)``, made once
+        per bank (the bank's ``prior`` tensor is the key)."""
+        prior = data["prior"]
+        hit = self._banks.get(id(prior))
+        if hit is None or hit[0] is not prior:
+            dvdz = None
+            if redshift is not None and "redshift" in data:
+                dvdz = interp(data["redshift"], redshift["grid"], redshift["dVcdz"])
+            hit = (prior, -torch.log(prior), dvdz)
+            self._banks[id(prior)] = hit
+        return hit[1], hit[2]
+
+    def __call__(self, samps, injs, Ninj, Nobs, Tobs):
+        ref = samps["prior"]
+        consts = self._constants(ref.device, ref.dtype)
+        hypers = dict(consts["pinned"])
+        for name, d in consts["priors"]:
+            hypers[name] = ppl.sample(name, d)
+        dists = {param: build(hypers, consts["redshift"]) for param, build in self.builders}
+        for alias, source in self.aliases:
+            dists[alias] = dists[source]
+
+        def bank_log_weights(data):
+            lw, dvdz = self._bank_terms(data, consts["redshift"])
+            for p in self.source_params:
+                d = dists[p]
+                if p == "redshift" and isinstance(d, PowerlawRedshift) and d.zs is consts["redshift"]["grid"]:
+                    lw = lw + d.log_prob(data[p], dVdc=dvdz)
+                else:
+                    lw = lw + dist.population_log_prob(d, data[p])
+            return lw
+
+        hierarchical_likelihood(
+            bank_log_weights(samps),
+            bank_log_weights(injs),
+            total_inj=Ninj,
+            Nobs=Nobs,
+            Tobs=Tobs,
+            surveyed_hypervolume=dists["redshift"].norm,
+            pedata=samps,
+            injdata=injs,
+            param_names=self.source_params,
+            m1min=2.0,
+            m2min=2.0,
+            mmax=100.0,
+            log=True,
+            **self.likelihood_kwargs,
+        )
+
+
+def construct_hierarchical_model(
+    model_dict,
+    prior_dict,
+    marginalize_selection=False,
+    min_neff_cut=True,
+    max_variance_cut=False,
+    posterior_predictive_check=True,
+):
+    """The PPL model of a parsed config (``ConfigReader.models`` and
+    ``.priors``): hyperprior sites, population distributions (mixtures and
+    iid aliases included), the redshift model's z grid up to the pinned
+    ``redshift_maximum`` and its ``norm`` as the surveyed hypervolume, and
+    the hierarchical likelihood with these settings.  Returns a
+    :class:`HierarchicalModel`; its sites carry the chain axis."""
+    return HierarchicalModel(model_dict, prior_dict, dict(
+        marginalize_selection=marginalize_selection,
+        min_neff_cut=min_neff_cut,
+        max_variance_cut=max_variance_cut,
+        posterior_predictive_check=posterior_predictive_check,
+    ))

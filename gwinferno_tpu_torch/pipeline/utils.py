@@ -20,6 +20,8 @@ from ..device import resolve_device
 from ..models.bsplines.smoothing import apply_difference_prior
 from ..models.bsplines.smoothing import prior_precision_cholesky
 from ..ppl import distributions as dist
+from ..utils.dataset import DataArray
+from ..utils.dataset import Dataset
 from ..utils.dataset import load_groups
 
 __all__ = [
@@ -31,6 +33,7 @@ __all__ = [
     "bspline_mass_prior",
     "bspline_spin_prior",
     "bspline_redshift_prior",
+    "posterior_dict_to_xarray",
 ]
 
 
@@ -198,3 +201,18 @@ def bspline_redshift_prior(z_nsplines=None, z_tau=None, name=None, z_cs_sig=1, z
     z_cs = _coef_block("z_cs" + name, "z_smoothing_prior" + name, z_nsplines, z_cs_sig, z_tau, z_deg, reparam,
                        pin_first=True)
     return torch.cat([torch.zeros_like(z_cs[..., :1]), z_cs], dim=-1)
+
+
+# ----------------------------------------------------------- result containers
+
+
+def posterior_dict_to_xarray(posterior_dict, subpop_names=None):
+    """Pack a posterior sample dict ``{name: (draws, ...)}`` (tensors or
+    arrays) into a :class:`Dataset` with dims ``("draw", "{name}_dim0",
+    ...)`` and a ``draw`` coordinate, the JAX package's layout."""
+    variables = {}
+    for k, v in posterior_dict.items():
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        dims = ("draw",) + tuple(f"{k}_dim{i}" for i in range(v.ndim - 1))
+        variables[k] = DataArray(v, dims, coords={"draw": np.arange(v.shape[0])})
+    return Dataset(variables)

@@ -10,7 +10,9 @@ every substituted site value carries an explicit leading chain axis
 
 from . import distributions
 from .handlers import block
+from .handlers import collect_deterministic
 from .handlers import condition
+from .handlers import deterministic_requested
 from .handlers import seed
 from .handlers import substitute
 from .handlers import trace
@@ -35,6 +37,8 @@ __all__ = [
     "substitute",
     "condition",
     "block",
+    "collect_deterministic",
+    "deterministic_requested",
     "ModelPotential",
     "log_density",
     "potential_energy",

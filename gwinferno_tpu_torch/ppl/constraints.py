@@ -1,24 +1,38 @@
 """Support constraints and ``biject_to``, which maps a support to its
-unconstraining bijector.  Counterpart of ``gwinferno_tpu/ppl/constraints.py``
-for real, positive and interval supports."""
+unconstraining bijector.  Counterpart of ``gwinferno_tpu/ppl/constraints.py``:
+real, real vector, positive, interval, simplex, ordered and integer
+supports.  ``is_discrete`` marks supports NUTS cannot sample."""
 
 from __future__ import annotations
 
 from .transforms import ExpTransform
 from .transforms import IdentityTransform
 from .transforms import IntervalTransform
+from .transforms import OrderedTransform
+from .transforms import StickBreakingTransform
 
-__all__ = ["Constraint", "real", "positive", "unit_interval", "interval", "biject_to"]
+__all__ = [
+    "Constraint",
+    "real",
+    "real_vector",
+    "positive",
+    "unit_interval",
+    "interval",
+    "simplex",
+    "ordered",
+    "integer",
+    "biject_to",
+]
 
 
 class Constraint:
     """A support descriptor with a factory for its bijector."""
 
-    is_discrete = False
-
-    def __init__(self, name, transform_factory):
+    def __init__(self, name, transform_factory, event_dims=0, is_discrete=False):
         self.name = name
         self._transform_factory = transform_factory
+        self.event_dims = event_dims
+        self.is_discrete = is_discrete
 
     def transform(self):
         return self._transform_factory()
@@ -34,8 +48,12 @@ class _Interval(Constraint):
 
 
 real = Constraint("real", IdentityTransform)
+real_vector = Constraint("real_vector", IdentityTransform, event_dims=1)
 positive = Constraint("positive", ExpTransform)
 unit_interval = _Interval(0.0, 1.0)
+simplex = Constraint("simplex", StickBreakingTransform, event_dims=1)
+ordered = Constraint("ordered", OrderedTransform, event_dims=1)
+integer = Constraint("integer", IdentityTransform, is_discrete=True)
 
 
 def interval(low, high):

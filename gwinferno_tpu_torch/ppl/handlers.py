@@ -1,4 +1,5 @@
-"""Effect handlers: ``trace``, ``seed``, ``substitute``, ``condition``, ``block``.
+"""Effect handlers: ``trace``, ``seed``, ``substitute``, ``condition``,
+``block`` and ``collect_deterministic``.
 
 Counterpart of ``gwinferno_tpu/ppl/handlers.py``.  Handlers are context
 managers that push onto the primitive handler stack and reinterpret the
@@ -122,3 +123,27 @@ class block(Messenger):
     def process_message(self, msg):
         if self.hide_fn(msg):
             msg["stop"] = True
+
+
+class collect_deterministic(Messenger):
+    """Mark a run of the model whose deterministic sites are read
+    (``site_names``: the names read, None for all).  A model computes sites
+    that cost more than its density, and that the density does not need
+    (the posterior-predictive draws), only inside such a run: see
+    :func:`deterministic_requested`."""
+
+    def __init__(self, fn=None, site_names=None):
+        super().__init__(fn)
+        self.site_names = None if site_names is None else set(site_names)
+
+
+def deterministic_requested(names):
+    """Whether an enclosing :class:`collect_deterministic` reads any of
+    ``names``; False at once when none is active (a potential's gradient)."""
+    active = [h for h in primitives._HANDLER_STACK if isinstance(h, collect_deterministic)]
+    if not active:
+        return False
+    if any(h.site_names is None for h in active):
+        return True
+    wanted = set().union(*(h.site_names for h in active))
+    return any(n in wanted for n in names)

@@ -122,7 +122,11 @@ class ModelPotential:
 
     Construction runs the model once (one chain, every latent site at the
     image of 0 under its bijector) to find the latent sites, their shapes and
-    their supports.  Sites are flattened in sorted name order.
+    their supports.  A site's unconstrained coordinates may have another
+    shape than its values (a simplex of K values has K - 1): ``shapes`` holds
+    the constrained shapes, ``unconstrained_shapes`` the ones ``z`` is cut
+    into.  Sites are flattened in sorted name order.  A discrete latent site
+    raises, as it does in the JAX package's engine.
     """
 
     def __init__(self, model, model_args=(), model_kwargs=None, device=None, dtype=torch.float32):
@@ -133,8 +137,15 @@ class ModelPotential:
         def probe(msg):
             if msg["is_observed"]:
                 return None
-            shape = (1,) + tuple(_plate_sample_shape(msg)) + msg["fn"].shape
-            return biject_to(msg["fn"].support)(torch.zeros(shape, dtype=dtype, device=self.device))
+            support = msg["fn"].support
+            if support.is_discrete:
+                raise ValueError(
+                    f"discrete latent site '{msg['name']}' is not supported by NUTS: "
+                    "marginalize it or condition on it"
+                )
+            t = biject_to(support)
+            shape = t.unconstrained_shape((1,) + tuple(_plate_sample_shape(msg)) + msg["fn"].shape)
+            return t(torch.zeros(shape, dtype=dtype, device=self.device))
 
         with torch.no_grad(), handlers.trace() as tr, handlers.substitute(substitute_fn=probe):
             model(*self.model_args, **self.model_kwargs)
@@ -144,7 +155,8 @@ class ModelPotential:
         self.names = sorted(latent)
         self.shapes = {k: tuple(latent[k]["value"].shape[1:]) for k in self.names}
         self.transforms = {k: biject_to(latent[k]["fn"].support) for k in self.names}
-        sizes = [int(torch.Size(self.shapes[k]).numel()) for k in self.names]
+        self.unconstrained_shapes = {k: self.transforms[k].unconstrained_shape(self.shapes[k]) for k in self.names}
+        sizes = [int(torch.Size(self.unconstrained_shapes[k]).numel()) for k in self.names]
         self.slices = {}
         off = 0
         for k, n in zip(self.names, sizes):
@@ -154,7 +166,7 @@ class ModelPotential:
 
     def unravel(self, z):
         """``(C, D)`` -> ``{site: (C, *shape)}`` (unconstrained)."""
-        return {k: z[:, self.slices[k]].reshape((z.shape[0],) + self.shapes[k]) for k in self.names}
+        return {k: z[:, self.slices[k]].reshape((z.shape[0],) + self.unconstrained_shapes[k]) for k in self.names}
 
     def ravel(self, u):
         """``{site: (C, *shape)}`` -> ``(C, D)``."""

@@ -1,16 +1,17 @@
-"""A lightweight labeled-array container, read side.
+"""A lightweight labeled-array container.
 
 Counterpart of ``gwinferno_tpu/utils/dataset.py``: named dims, coords and
-attrs, read from the HDF5 group layout the JAX package writes.  ``h5py`` is
-imported inside the readers only, so the port imports on a machine that has
-no ``h5py``.
+attrs, written to and read from the JAX package's HDF5 group layout (one
+dataset per variable with a ``dims`` attribute, one ``_coord_{dim}`` dataset
+per coordinate).  ``h5py`` is imported inside the readers and writers only,
+so the port imports on a machine that has no ``h5py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["DataArray", "Dataset", "load_groups"]
+__all__ = ["DataArray", "Dataset", "save_groups", "load_groups"]
 
 
 class DataArray:
@@ -34,6 +35,35 @@ class Dataset:
 
     def __getitem__(self, name):
         return self.variables[name]
+
+    def to_hdf5(self, path_or_group, group=None):
+        """Write to a file path (replacing it) or into an open h5py group,
+        under ``group`` if given."""
+        if isinstance(path_or_group, str):
+            import h5py
+
+            with h5py.File(path_or_group, "w") as f:
+                self._write(f.create_group(group) if group else f)
+        else:
+            self._write(path_or_group.create_group(group) if group else path_or_group)
+
+    def _write(self, g):
+        for k, v in self.attrs.items():
+            g.attrs[k] = v
+        written_coords = set()
+        for name, arr in self.variables.items():
+            d = g.create_dataset(name, data=arr.data)
+            d.attrs["dims"] = np.array([s.encode() for s in arr.dims])
+            for k, v in arr.attrs.items():
+                d.attrs[k] = v
+            for dim, coord in arr.coords.items():
+                if dim in written_coords:
+                    continue
+                coord = np.asarray(coord)
+                if coord.dtype.kind in ("U", "S", "O"):
+                    coord = np.array([str(c).encode() for c in coord])
+                g.create_dataset(f"_coord_{dim}", data=coord)
+                written_coords.add(dim)
 
     @classmethod
     def from_hdf5(cls, path, group=None):
@@ -64,6 +94,15 @@ class Dataset:
             attrs = {k: v for k, v in d.attrs.items() if k != "dims"}
             data_vars[name] = DataArray(d[()], dims, {dim: coords[dim] for dim in dims if dim in coords}, attrs)
         return cls(data_vars, dict(g.attrs))
+
+
+def save_groups(path, groups):
+    """Write ``{group_name: Dataset}`` to one HDF5 file."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for name, ds in groups.items():
+            ds.to_hdf5(f, group=name)
 
 
 def load_groups(path):

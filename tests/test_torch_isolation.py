@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, no JAX package, h5py only lazily; CUDA
-entry points never fall back to the CPU on their own."""
+"""The port stands alone: no JAX, no JAX package, h5py, PyYAML and
+matplotlib only lazily; config dotted paths resolve onto the port and never
+fall back to the JAX package; CUDA entry points never fall back to the CPU
+on their own."""
 
 import ast
 import os
@@ -40,19 +42,97 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     for name, at_top in _imported_modules(tree):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "gwinferno_tpu"), f"{path} imports {name}"
-        assert not (root == "h5py" and at_top), f"{path} imports h5py at module level"
+        assert not (root in LAZY and at_top), f"{path} imports {name} at module level"
+
+
+# what the port may import only inside the functions that need it (the
+# card's machine has none of these)
+LAZY = ("h5py", "yaml", "matplotlib")
 
 
 def test_port_and_smoke_import_without_jax_and_h5py():
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['h5py'] = None\n"
+        "for m in ('jax', 'h5py', 'yaml', 'matplotlib', 'gwinferno_tpu'):\n"
+        "    sys.modules[m] = None\n"
         "import gwinferno_tpu_torch\n"
         "for m in pkgutil.walk_packages(gwinferno_tpu_torch.__path__, 'gwinferno_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "assert 'gwinferno_tpu' not in sys.modules\n"
+        "assert sys.modules['gwinferno_tpu'] is None\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+# a finder that records every attempt to import the JAX package
+_SPY = (
+    "import sys\n"
+    "class Spy:\n"
+    "    seen = []\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('gwinferno_tpu', 'jax'):\n"
+    "            Spy.seen.append(name)\n"
+    "        return None\n"
+    "sys.meta_path.insert(0, Spy())\n"
+)
+
+
+def _config_paths():
+    """Every dotted path a config of the repo names (the example configs and
+    the configs written by the JAX package's config tests)."""
+    import re
+
+    files = [os.path.join(ROOT, "examples", "config_files", n) for n in os.listdir(os.path.join(ROOT, "examples",
+                                                                                                "config_files"))
+             if n.endswith(".yml")]
+    files += [os.path.join(ROOT, "tests", "ppl", "test_mixture.py"), os.path.join(ROOT, "tests", "pipeline",
+                                                                                   "test_config.py")]
+    paths = set()
+    for path in files:
+        with open(path) as f:
+            paths |= set(re.findall(r"^\s*(?:model|prior):\s*([A-Za-z_][\w.]*)\s*$", f.read(), re.M))
+    return sorted(paths)
+
+
+def test_config_dotted_paths_resolve_onto_the_port():
+    paths = _config_paths()
+    assert "gwinferno.numpyro_distributions.PowerlawSmoothedPowerlaw" in paths
+    assert "numpyro.distributions.MixtureGeneral" in paths and len(paths) >= 8
+    code = _SPY + (
+        "from gwinferno_tpu_torch.pipeline.parser import ConfigReader, load_dist_from_string\n"
+        f"for p in {paths!r}:\n"
+        "    obj = load_dist_from_string(p)\n"
+        "    assert obj.__module__.startswith('gwinferno_tpu_torch.'), (p, obj.__module__)\n"
+        "r = ConfigReader()\n"
+        "r.parse('examples/config_files/config_validation.yml')\n"
+        "assert Spy.seen == [], Spy.seen\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_jax_package_paths_never_fall_back_to_the_jax_package():
+    """A dotted path of the JAX package that the port lacks, or a JAX path,
+    raises ImportError without any attempt to import the JAX package."""
+    code = _SPY + (
+        "from gwinferno_tpu_torch.pipeline.parser import load_dist_from_string\n"
+        "for p in ('gwinferno_tpu.infer.svi.find_map', 'gwinferno.pipeline.analysis.find_map',\n"
+        "          'gwinferno_tpu.ops.chunked.chunked_summaries', 'numpyro.distributions.StudentT',\n"
+        "          'jax.numpy.sum'):\n"
+        "    try:\n"
+        "        load_dist_from_string(p)\n"
+        "    except ImportError as e:\n"
+        "        assert 'not imported' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(p)\n"
+        "assert Spy.seen == [], Spy.seen\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -90,6 +170,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         setup_bspline_mass_models({"mass_1": np.full((2, 3), 10.0), "mass_ratio": np.full((2, 3), 0.5)},
                                   {"mass_1": np.full(4, 10.0), "mass_ratio": np.full(4, 0.5)}, 8, 6, 3.0, 100.0)
+    # the config route: the CLI's run and the config model under MCMC
+    import chip_smoke
+    from gwinferno_tpu_torch.pipeline.cli import model_from_reader, run_config
+    from gwinferno_tpu_torch.pipeline.parser import ConfigReader
+
+    reader = ConfigReader()
+    reader.parse_dict(chip_smoke.CONFIG_VALIDATION)
+    bank = {k: np.full((2, 3), 0.5) for k in ("mass_1", "mass_ratio", "redshift", "prior")}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_config(reader, bank, {k: v[0] for k, v in bank.items()}, {"total_inj": 10.0, "nObs": 2, "obs_time": 1.0})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MCMC(NUTS(model_from_reader(reader)))
 
 
 def test_double_logsumexp_on_cpu_uses_the_plain_version(monkeypatch):
