@@ -16,12 +16,15 @@ and with its wall time as it ends:
    route's and the unfused B-spline route's shapes plus all--inf and
    partly--inf rows, two launches bit for bit; kernel, plain, library and
    bound times beside the earlier design's, the geometry from the card's SM
-   count and the kernel's occupancy, its registers;
+   count and the kernel's occupancy, its registers; also at SMC's shapes
+   (1024 particles: ``(70656, 8000)`` and ``(1024, 46770)``);
 4. the flat route (the default) at full catalog width: a synthetic catalog
    made from ``--seed`` with numpy (69 events x 8000 PE samples, 46,770
    found injections), the bench model's potential and gradient for 16
    chains (checked against a float64 CPU evaluation on a slice of the
-   catalog), then a 16-chain dense-mass NUTS run (depth 6) with warmup;
+   catalog), then a 16-chain dense-mass NUTS run (depth 6) with warmup,
+   saved with ``save_checkpoint``, loaded and resumed for 10 samples through
+   ``post_warmup_state`` (no warmup, step size and mass matrix bit for bit);
 5. K2 (``ops/csrc/streamed.cu``, the streamed whole-chain likelihood,
    forward and backward) held against its plain torch version on the
    streamed route's two banks (PE ``(69, 8000)``, injections ``(6, 8192)``)
@@ -57,8 +60,20 @@ and with its wall time as it ends:
    (NUTS, dense mass, 4 chains, depth 6) through the CLI's in-memory
    ``run_config``: summary, the CLI's four deterministic sites and one
    posterior-predictive site, all finite;
-9. the kernels line (one JSON object), then the contract line
-   ``{"ok": true, "device": {...}}``, last on stdout.
+9. the config route's sampler block with ``kernel: HMC`` through
+   ``run_config`` (dense mass, 4 chains, the trajectory length 64 times the
+   smallest step size of the run's own search): every site finite,
+   divergences at most 10%;
+10. SVI on the bench flat route at one chain: ``find_map`` and ``SVI``
+    (AutoDelta from ``FIDUCIAL_INIT``, ``Adam(0.02)``, 300 steps; losses
+    finite and falling, ``|MAP - TRUTH|`` per site, ms a step), then
+    AutoNormal (4 particles, 50 steps);
+11. SMC on the bench flat route, 1024 particles and 5 mutation steps from a
+    N(0, 0.2) base: beta = 1 reached within ``max_stages``, the log
+    evidence and the particles finite and inside their supports, the peak
+    memory;
+12. the kernels line (one JSON object), then the contract line
+    ``{"ok": true, "device": {...}}``, last on stdout.
 
 K1 is also held against its plain version at the config route's shapes
 ``(276, 8000)`` and ``(4, 46770)`` in phase 3.  Launch counts are set to 0
@@ -69,7 +84,8 @@ posterior-predictive site) and read just after: K1's from the flat route,
 K2's from the streamed route (where K1 must not run), K3's from the B-spline
 route (where K1 must not run either), K1's again from the config route,
 where it must launch exactly twice per model evaluation and K2 and K3 not
-at all.
+at all, and so under HMC, SVI and SMC, each counted on its own (a model
+evaluation: one run of the model, counted by its ``log_likelihood`` site).
 
 Any failure raises, with a traceback and a non-zero exit code; no phase
 catches its own failure.  Without CUDA the script exits non-zero before
@@ -84,6 +100,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from types import SimpleNamespace
@@ -98,6 +115,18 @@ import torch  # noqa: E402
 from gwinferno_tpu_torch.cosmology import PLANCK_2015_LVK_Cosmology as COSMO  # noqa: E402
 from gwinferno_tpu_torch.infer import MCMC  # noqa: E402
 from gwinferno_tpu_torch.infer import NUTS  # noqa: E402
+from gwinferno_tpu_torch.infer import SMC  # noqa: E402
+from gwinferno_tpu_torch.infer import SVI  # noqa: E402
+from gwinferno_tpu_torch.infer import Adam  # noqa: E402
+from gwinferno_tpu_torch.infer import AutoDelta  # noqa: E402
+from gwinferno_tpu_torch.infer import AutoNormal  # noqa: E402
+from gwinferno_tpu_torch.infer import Trace_ELBO  # noqa: E402
+from gwinferno_tpu_torch.infer import find_map  # noqa: E402
+from gwinferno_tpu_torch.infer.hmc_util import find_reasonable_step_size  # noqa: E402
+from gwinferno_tpu_torch.infer.hmc_util import identity_mass_matrix  # noqa: E402
+from gwinferno_tpu_torch.infer.nuts import nuts_init  # noqa: E402
+from gwinferno_tpu_torch.infer.smc import _ess as smc_ess  # noqa: E402
+from gwinferno_tpu_torch.infer.smc import _incremental_logw as smc_incremental_logw  # noqa: E402
 from gwinferno_tpu_torch.infer.diagnostics import effective_sample_size  # noqa: E402
 from gwinferno_tpu_torch.infer.diagnostics import split_rhat  # noqa: E402
 from gwinferno_tpu_torch.models.parametric.parametric import PowerlawRedshiftModel  # noqa: E402
@@ -110,6 +139,7 @@ from gwinferno_tpu_torch.ops.fused import double_logsumexp  # noqa: E402
 from gwinferno_tpu_torch.ops import streamed  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import STREAMED_BWD_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import STREAMED_FWD_KERNEL  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bench_model import FIDUCIAL_INIT  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import MMAX  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import MMIN  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import TRUTH  # noqa: E402
@@ -129,6 +159,10 @@ from gwinferno_tpu_torch.pipeline.utils import to_tensors  # noqa: E402
 from gwinferno_tpu_torch.ppl import ModelPotential  # noqa: E402
 from gwinferno_tpu_torch.ppl.handlers import Messenger  # noqa: E402
 from gwinferno_tpu_torch.ppl.infer_util import find_valid_initial_params  # noqa: E402
+from gwinferno_tpu_torch.ppl.transforms import ExpTransform  # noqa: E402
+from gwinferno_tpu_torch.ppl.transforms import IntervalTransform  # noqa: E402
+from gwinferno_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
+from gwinferno_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 
 # the committed catalog's size and attributes (tests/data/pe_inj_synthetic.h5)
 N_EVENTS, N_SAMPLES, N_FOUND = 69, 8000, 46770
@@ -226,6 +260,24 @@ CONFIG_INIT = {
     "redshift_lamb": (1.7, 0.5), "unscaled_rate": (69.0, 10.0),
 }
 CONFIG_CHAINS = (4, 16)
+
+# the other engines: HMC's trajectory length is set so that a transition
+# costs at most this many leapfrogs at the step size its search finds (NUTS
+# at depth 6 costs up to 63); SVI's steps and rate (AutoDelta from
+# FIDUCIAL_INIT, then AutoNormal); SMC at the JAX package's defaults
+HMC_LEAPFROGS = 64
+# HMC's transitions; the earlier routes' are --warmup and --samples
+HMC_WARMUP, HMC_SAMPLES = 30, 20
+SVI_STEPS, SVI_LR, SVI_NORMAL_STEPS, SVI_PARTICLES = 300, 0.02, 50, 4
+SMC_PARTICLES, SMC_MUTATIONS = 1024, 5
+# SMC's base is N(0, SMC_BASE_SCALE) in unconstrained space.  At the JAX
+# package's default scale of 2 nearly all of the base's particles sit on the
+# bench model's n_eff walls (potential 3.4e38), and the bisection cannot try
+# a beta below 1e-5, where every wall particle already weighs 0: the ESS is
+# the off-wall count, under the 50% target, and the run never leaves
+# beta = 0.  smc_base_walls measures both at each scale (PERF.md).
+SMC_BASE_SCALE = 0.2
+RESUME_SAMPLES = 10
 
 # synthetic search: proxy SNR ~ Mc_det^(5/6) / DL with a random projection
 D0_MPC = 1600.0
@@ -484,8 +536,9 @@ def _earlier(key, ms):
 
 def check_k1(gen):
     """K1 against its plain version on the flat route's shapes (C = 16), the
-    unfused B-spline route's (C = 8), the config route's (C = 4) and two
-    edge shapes, float32 and
+    unfused B-spline route's (C = 8), the config route's (C = 4), SMC's
+    (1024 particles: the PE call's last row starts 5.65e8 elements in) and
+    two edge shapes, float32 and
     float64, gradient included; two launches on the same input must give
     identical bits.  At the main path's shapes, float32: kernel, plain,
     library and bound times beside the earlier design's, the geometry and
@@ -494,6 +547,7 @@ def check_k1(gen):
         ("flat_pe", (N_CHAINS * N_EVENTS, N_SAMPLES)), ("flat_inj", (N_CHAINS, N_FOUND)),
         ("bspline_pe", (BSPLINE_CHAINS * N_EVENTS, N_SAMPLES)), ("bspline_inj", (BSPLINE_CHAINS, N_FOUND)),
         ("config_pe", (CONFIG_CHAINS[0] * N_EVENTS, N_SAMPLES)), ("config_inj", (CONFIG_CHAINS[0], N_FOUND)),
+        ("smc_pe", (SMC_PARTICLES * N_EVENTS, N_SAMPLES)), ("smc_inj", (SMC_PARTICLES, N_FOUND)),
     ]
     extra_shapes = [("all_-inf_rows", (8, 1000)), ("part_-inf_rows", (64, 3000))]
     tol = {torch.float32: dict(atol=1e-4, rtol=0.0), torch.float64: dict(atol=0.0, rtol=1e-12)}
@@ -657,12 +711,48 @@ def flat_route(args, gen):
         if not bool((pe.abs() < 1e30).all()):
             raise AssertionError("fiducial starts sit on a likelihood wall")
         log(f"  potential range [{float(pe.min()):.3f}, {float(pe.max()):.3f}], |grad| max {float(grad.abs().max()):.3e}")
-    run_nuts(model, args, init, "flat")
+    mcmc = run_nuts(model, args, init, "flat")
     launches = DLSE_KERNEL.launches
     if launches == 0:
         raise AssertionError("K1 was not launched on the flat route")
     log(f"  K1 launches on the flat route: {launches}")
+    resume_flat(mcmc, model, args)
     return launches, (pedict, injdict, constants, z_model), init, potential, z0
+
+
+def resume_flat(mcmc, model, args):
+    """The flat route's NUTS run saved with ``save_checkpoint`` to a
+    temporary file, loaded with ``load_checkpoint`` and resumed for
+    ``RESUME_SAMPLES`` samples through ``post_warmup_state``: no warmup and
+    no step-size search run (the model runs once for the starts' gradient,
+    then once per leapfrog round), the step size and inverse mass matrix
+    carry over bit for bit, and the samples are finite."""
+    with phase(f"resume the flat route's NUTS run from a checkpoint: {RESUME_SAMPLES} samples, {N_CHAINS} chains"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "flat_route.npz")
+            save_checkpoint(path, mcmc)
+            saved = load_checkpoint(path)
+            size = os.path.getsize(path)
+        resumed = MCMC(NUTS(model, dense_mass=True, max_tree_depth=MAX_TREE_DEPTH), num_warmup=args.warmup,
+                       num_samples=RESUME_SAMPLES, num_chains=N_CHAINS, device="cuda", dtype=torch.float32)
+        with ModelRuns() as runs:
+            resumed.run(args.seed + 1, post_warmup_state=saved)
+            torch.cuda.synchronize()
+        steps = resumed.get_extra_fields(group_by_chain=True)["num_steps"]
+        rounds = 2 + int(steps.max(0).values.sum())
+        log(f"  checkpoint {size} bytes; {runs.runs} model runs ({rounds} expected: the site probe, the starts' "
+            f"gradient and one per leapfrog round of {RESUME_SAMPLES} transitions); timings {sorted(resumed.timings)}")
+        if runs.runs != rounds or "warmup" in resumed.timings:
+            raise AssertionError(f"the resumed run did more than sample: {runs.runs} model runs, {rounds} expected")
+        for key in ("step_size", "inverse_mass_matrix"):
+            if not torch.equal(resumed._adapt_info[key], mcmc._adapt_info[key]):
+                raise AssertionError(f"the resumed run's {key} differs from the saved run's")
+        samples = resumed.get_samples(group_by_chain=True)
+        if not all(tuple(v.shape) == (N_CHAINS, RESUME_SAMPLES) and bool(torch.isfinite(v).all())
+                   for v in samples.values()):
+            raise AssertionError("the resumed run's samples are not finite")
+        log(f"  step size and inverse mass matrix carried over bit for bit; {len(samples)} sites finite; "
+            f"mean accept {float(resumed.get_extra_fields()['accept_prob'].mean()):.3f}")
 
 
 # ----------------------------------------------------------------- K2
@@ -1226,13 +1316,17 @@ class ModelRuns(Messenger):
             self.runs += 1
 
 
-def config_reader(num_warmup=None, num_samples=None):
+def config_reader(num_warmup=None, num_samples=None, trajectory_length=None):
     """A :class:`ConfigReader` of ``CONFIG_VALIDATION``, its sampler block
-    cut to the smoke's transitions and depth."""
+    cut to the smoke's transitions and depth; with ``trajectory_length`` its
+    kernel is HMC (dense mass) with that trajectory length."""
     conf = json.loads(json.dumps(CONFIG_VALIDATION))
     if num_warmup is not None:
         conf["sampler"]["mcmc_kwargs"].update(num_warmup=num_warmup, num_samples=num_samples)
         conf["sampler"]["kernel_kwargs"]["max_tree_depth"] = MAX_TREE_DEPTH
+    if trajectory_length is not None:
+        conf["sampler"]["kernel"] = "HMC"
+        conf["sampler"]["kernel_kwargs"] = {"dense_mass": True, "trajectory_length": trajectory_length}
     reader = ConfigReader()
     reader.parse_dict(conf)
     return reader
@@ -1310,7 +1404,7 @@ def config_nuts(pedict, injdict, constants, args):
     reader = config_reader(args.warmup, args.samples)
     n_chains = reader.sampler_conf["mcmc_kwargs"]["num_chains"]
     ppc_site = "mass_1_obs_event_0"
-    DLSE_KERNEL.launches = STREAMED_FWD_KERNEL.launches = STREAMED_BWD_KERNEL.launches = FLW_KERNEL.launches = 0
+    _zero_counts()
     with phase(f"config route: NUTS through run_config, {args.warmup} warmup + {args.samples} samples, "
                f"{n_chains} chains, dense mass, depth {MAX_TREE_DEPTH}"), ModelRuns() as runs:
         t0 = time.perf_counter()
@@ -1345,6 +1439,208 @@ def config_nuts(pedict, injdict, constants, args):
     return n_k1
 
 
+def _zero_counts():
+    DLSE_KERNEL.launches = STREAMED_FWD_KERNEL.launches = STREAMED_BWD_KERNEL.launches = FLW_KERNEL.launches = 0
+
+
+def _check_k1_only(label, runs):
+    """K1 launched exactly twice per model run over ``runs`` runs, K2 and K3
+    never; returns the K1 launches."""
+    n_k1 = DLSE_KERNEL.launches
+    others = (STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, FLW_KERNEL.launches)
+    log(f"  launches under {label}: K1 {n_k1} over {runs} model runs; K2 forward, K2 backward, K3: {others}")
+    if n_k1 != 2 * runs or n_k1 == 0:
+        raise AssertionError(f"{label}: K1 launched {n_k1} times over {runs} model runs; two a run expected")
+    if any(others):
+        raise AssertionError(f"{label}: K2 or K3 ran: {others}")
+    return n_k1
+
+
+def hmc_trajectory_length(pedict, injdict, constants, seed, num_chains):
+    """``HMC_LEAPFROGS`` times the smallest step size the HMC run's own
+    search will find: the same seed, the same starts (the config route's
+    init search) and the same doubling search on the unit mass matrix that
+    ``MCMC.run`` does before warmup."""
+    pot = config_potential(pedict, injdict, constants, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z0 = find_valid_initial_params(pot, num_chains, gen)
+    state = nuts_init(pot, z0)
+    mm = identity_mass_matrix(num_chains, pot.dim, True, torch.float32, "cuda")
+    eps = find_reasonable_step_size(pot, mm, state.z, gen, 1.0, pe_grad=(state.pe, state.grad))
+    log(f"  the search's step sizes at the run's starts: {[round(float(e), 5) for e in eps]}")
+    return HMC_LEAPFROGS * float(eps.min())
+
+
+def config_hmc(pedict, injdict, constants, args):
+    """The config route's sampler block with ``kernel: HMC`` (dense mass,
+    the trajectory length of :func:`hmc_trajectory_length`, 4 chains,
+    ``HMC_WARMUP`` + ``HMC_SAMPLES``) through ``run_config``, with the launch
+    counts zeroed just before and read just after: every site finite,
+    divergences at most 10% of the sampling transitions, K1 twice per model
+    run, K2 and K3 never.  Returns the K1 launches."""
+    n_chains = CONFIG_VALIDATION["sampler"]["mcmc_kwargs"]["num_chains"]
+    with phase("config route, HMC: trajectory length"):
+        length = hmc_trajectory_length(pedict, injdict, constants, args.seed, n_chains)
+        log(f"  trajectory_length L = {length:.5f} ({HMC_LEAPFROGS} leapfrogs at the smallest step size)")
+    reader = config_reader(HMC_WARMUP, HMC_SAMPLES, trajectory_length=length)
+    _zero_counts()
+    with phase(f"config route: HMC through run_config, {HMC_WARMUP} warmup + {HMC_SAMPLES} samples, "
+               f"{n_chains} chains, dense mass, L = {length:.5f}"), ModelRuns() as runs:
+        t0 = time.perf_counter()
+        mcmc, posterior = run_config(reader, pedict, injdict, constants, rng_seed=args.seed, device="cuda",
+                                     dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_k1 = _check_k1_only("HMC on the config route", runs.runs)
+    if type(mcmc.kernel).__name__ != "HMC":
+        raise AssertionError(f"run_config ran {type(mcmc.kernel).__name__}, not HMC")
+    n_draws = HMC_SAMPLES * n_chains
+    for k, v in posterior.items():
+        if tuple(v.shape) != (n_draws,) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"HMC config route, site {k}: values of shape {tuple(v.shape)} not finite")
+    extra = mcmc.get_extra_fields()
+    steps, n_div = extra["num_steps"], int(extra["diverging"].sum())
+    rounds = int(mcmc.get_extra_fields(group_by_chain=True)["num_steps"].max(0).values.sum())
+    log(f"  wall {wall:.2f} s (init {mcmc.timings['init']:.2f} s, warmup {mcmc.timings.get('warmup', 0.0):.2f} s, "
+        f"sampling {mcmc.timings['sample']:.2f} s); {runs.runs} model runs ({rounds} leapfrog rounds in sampling, "
+        f"{runs.runs - rounds} before it: the probe, the searches, warmup); leapfrogs per transition in sampling "
+        f"(num_steps): mean {float(steps.double().mean()):.1f}, min {int(steps.min())}, max {int(steps.max())}; "
+        f"final step sizes {[round(float(e), 5) for e in mcmc._adapt_info['step_size']]}")
+    log(f"  divergences {n_div} of {steps.numel()} transitions, mean accept {float(extra['accept_prob'].mean()):.3f}; "
+        f"{len(posterior)} sites finite; posterior means "
+        + ", ".join(f"{k}={float(v.double().mean()):.3f}" for k, v in sorted(posterior.items())))
+    if n_div > 0.1 * steps.numel():
+        raise AssertionError(f"HMC on the config route: {n_div} divergences in {steps.numel()} transitions")
+    return n_k1
+
+
+def bench_flat_model(catalog, z_model):
+    pedict, injdict, constants = catalog
+    return BenchModel(pedict, injdict, constants, z_model, device="cuda", dtype=torch.float32)
+
+
+def svi_route(catalog, z_model, args):
+    """SVI on the bench flat route at C = 1: AutoDelta from ``FIDUCIAL_INIT``
+    with ``Adam(SVI_LR)`` for ``SVI_STEPS`` steps through ``find_map`` and
+    through ``SVI``, then AutoNormal (centred on ``FIDUCIAL_INIT``: from
+    random starts a particle may land on an n_eff wall, whose potential of
+    3.4e38 overflows the float32 mean of two) with ``SVI_PARTICLES``
+    particles for ``SVI_NORMAL_STEPS`` steps, the launch counts zeroed just before and read
+    just after; K1 twice per model run (each run builds its guide's
+    potential with one model run, then one a step).  Returns ``(K1
+    launches, ms per AutoDelta step)``."""
+    model = bench_flat_model(catalog, z_model)
+    _zero_counts()
+    with phase(f"SVI on the bench flat route: find_map and SVI (AutoDelta, Adam({SVI_LR}), {SVI_STEPS} steps), "
+               f"AutoNormal ({SVI_PARTICLES} particles, {SVI_NORMAL_STEPS} steps)"), ModelRuns() as runs:
+        est = find_map(args.seed, model, Niter=SVI_STEPS, lr=SVI_LR, init_values=FIDUCIAL_INIT, device="cuda")
+        guide = AutoDelta(model, init_values=FIDUCIAL_INIT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = SVI(model, guide, Adam(SVI_LR), Trace_ELBO(), device="cuda").run(args.seed, SVI_STEPS)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) / SVI_STEPS * 1e3
+        normal = AutoNormal(model, init_values=FIDUCIAL_INIT)
+        res_n = SVI(model, normal, Adam(SVI_LR), Trace_ELBO(num_particles=SVI_PARTICLES), device="cuda").run(
+            args.seed, SVI_NORMAL_STEPS)
+        draws = normal.sample_posterior(args.seed, res_n.params, sample_shape=(100,))
+        torch.cuda.synchronize()
+    n_k1 = _check_k1_only("SVI on the bench flat route", runs.runs)
+    want_runs = 3 + 2 * SVI_STEPS + SVI_NORMAL_STEPS
+    if runs.runs != want_runs:
+        raise AssertionError(f"SVI ran the model {runs.runs} times, {want_runs} expected (one a step and one a run)")
+    losses, losses_n = res.losses, res_n.losses
+    if not (bool(torch.isfinite(losses).all()) and float(losses[-1]) < float(losses[0])):
+        raise AssertionError(f"AutoDelta losses not finite or not falling: {float(losses[0])} -> {float(losses[-1])}")
+    if not (bool(torch.isfinite(losses_n).all()) and all(bool(torch.isfinite(v).all()) for v in draws.values())):
+        raise AssertionError("AutoNormal losses or draws not finite")
+    map_svi = guide.median(res.params)
+    if not all(bool(torch.isfinite(v).all()) for v in est.values()):
+        raise AssertionError("find_map's estimate not finite")
+    gap = max(float((est[k] - map_svi[k]).abs()) for k in est)
+    log(f"  AutoDelta loss {float(losses[0]):.3f} -> {float(losses[-1]):.3f} in {SVI_STEPS} steps, {ms_step:.3f} ms a "
+        f"step (host clock, synchronized); find_map against SVI's AutoDelta: max |difference| {gap:.3e}")
+    log("  |MAP - TRUTH|: " + ", ".join(f"{k} {abs(float(est[k]) - v):.4f}" for k, v in TRUTH.items())
+        + f"; unscaled_rate {float(est['unscaled_rate']):.3f}")
+    log(f"  AutoNormal loss {float(losses_n[0]):.3f} -> {float(losses_n[-1]):.3f} in {SVI_NORMAL_STEPS} steps; "
+        f"100 guide draws finite")
+    return n_k1, ms_step
+
+
+def _inside_supports(potential, particles):
+    """Every particle inside its site's support (open intervals, positive
+    reals, finite reals)."""
+    for k, v in particles.items():
+        t = potential.transforms[k]
+        ok = torch.isfinite(v)
+        if isinstance(t, IntervalTransform):
+            ok &= (v > t.low) & (v < t.high)
+        elif isinstance(t, ExpTransform):
+            ok &= v > 0
+        if not bool(ok.all()):
+            raise AssertionError(f"SMC site {k}: {int((~ok).sum())} particles outside the support")
+
+
+def smc_base_walls(model, seed, scales=(2.0, 1.0, 0.5, SMC_BASE_SCALE)):
+    """For bases N(0, scale) in unconstrained space: the share of
+    ``SMC_PARTICLES`` draws on the n_eff walls (potential >= 1e30) and the
+    ESS at the smallest beta SMC's bisection can try first (2^-17, within
+    its 1e-5 tolerance of 0), against the target of half the particles."""
+    pot = ModelPotential(model, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for scale in scales:
+        z = scale * torch.randn(SMC_PARTICLES, pot.dim, generator=gen, device="cuda")
+        with torch.no_grad():
+            pe_post = pot(z)
+        pe_base = 0.5 * ((z / scale) ** 2).sum(-1) + pot.dim * math.log(scale)
+        ess = float(smc_ess(smc_incremental_logw(2.0**-17, 0.0, pe_post, pe_base)))
+        log(f"  base N(0, {scale}): {float((pe_post.abs() >= 1e30).double().mean()):.1%} of {SMC_PARTICLES} draws on "
+            f"the walls; ESS at beta = 2^-17: {ess:.1f} (target {SMC_PARTICLES // 2})")
+
+
+def smc_route(catalog, z_model, args):
+    """SMC on the bench flat route, ``SMC_PARTICLES`` particles and
+    ``SMC_MUTATIONS`` mutation steps (the JAX package's defaults) from a
+    base of scale ``SMC_BASE_SCALE``, the
+    launch counts zeroed just before and read just after: at least one
+    stage, the last at beta = 1 within ``max_stages``, a finite log
+    evidence, particles finite and inside their supports, K1 twice per model
+    run over ``2 + stages * mutation steps`` runs (the potential's site
+    probe, the first particles, each mutation step).  Returns ``(K1
+    launches, stages, peak GB)``."""
+    model = bench_flat_model(catalog, z_model)
+    with phase("SMC's base against the likelihood walls"):
+        smc_base_walls(model, args.seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smc = SMC(model, num_particles=SMC_PARTICLES, num_mutation_steps=SMC_MUTATIONS, base_scale=SMC_BASE_SCALE,
+              device="cuda")
+    _zero_counts()
+    with phase(f"SMC on the bench flat route: {SMC_PARTICLES} particles, {SMC_MUTATIONS} mutation steps, "
+               f"base N(0, {SMC_BASE_SCALE})"), ModelRuns() as runs:
+        t0 = time.perf_counter()
+        res = smc.run(args.seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_k1 = _check_k1_only("SMC on the bench flat route", runs.runs)
+    stages = int(res.num_stages)
+    if runs.runs != 2 + stages * SMC_MUTATIONS:
+        raise AssertionError(f"SMC ran the model {runs.runs} times over {stages} stages")
+    betas = smc.betas
+    log(f"  {stages} stages in {wall:.2f} s ({runs.runs} model runs), final acceptance "
+        f"{float(res.final_acceptance):.3f}, log evidence {float(res.log_evidence):.4f}, peak memory {peak:.2f} GB; "
+        f"betas {[float(f'{b:.3g}') for b in betas[:4]]} ... {[float(f'{b:.3g}') for b in betas[-3:]]}")
+    if not (stages >= 1 and betas and betas[-1] == 1.0 and stages <= smc.max_stages):
+        raise AssertionError(f"SMC did not reach beta = 1 within {smc.max_stages} stages (last {betas[-1:]})")
+    if not math.isfinite(float(res.log_evidence)):
+        raise AssertionError("SMC log evidence not finite")
+    _inside_supports(ModelPotential(model, device="cuda", dtype=torch.float32), res.particles)
+    log("  particles finite and inside their supports; means "
+        + ", ".join(f"{k}={float(v.double().mean()):.3f}" for k, v in sorted(res.particles.items())))
+    return n_k1, stages, peak
+
+
 def config_route(args, catalog, gen):
     """The config-driven route: ``CONFIG_VALIDATION``'s model on the catalog,
     its gradient checked, timed and profiled, then its sampler block.
@@ -1358,8 +1654,9 @@ def config_route(args, catalog, gen):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--warmup", type=int, default=30)
-    parser.add_argument("--samples", type=int, default=20)
+    # the routes of earlier slices; HMC runs HMC_WARMUP + HMC_SAMPLES
+    parser.add_argument("--warmup", type=int, default=10)
+    parser.add_argument("--samples", type=int, default=5)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1393,6 +1690,10 @@ def main(argv=None):
     k3, k3_launches, bspline_ms = bspline_route(args, (pedict, injdict, constants), gen)
     torch.cuda.empty_cache()
     config_launches, config_ms = config_route(args, (pedict, injdict, constants), gen)
+    torch.cuda.empty_cache()
+    hmc_launches = config_hmc(pedict, injdict, constants, args)
+    svi_launches, svi_ms = svi_route((pedict, injdict, constants), z_model, args)
+    smc_launches, smc_stages, smc_peak = smc_route((pedict, injdict, constants), z_model, args)
 
     pe, inj = k1["flat_pe"], k1["flat_inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
@@ -1421,6 +1722,18 @@ def main(argv=None):
             "config_bound_ms": k1["config_pe"]["bound_ms"] + k1["config_inj"]["bound_ms"],
             "config_route_launches": config_launches,
             "config_route_grad_ms": {str(C): v for C, v in config_ms.items()},
+            # SMC's two calls at 1024 particles (kernel, plain, library, bound)
+            "smc_ms": k1["smc_pe"]["ms"] + k1["smc_inj"]["ms"],
+            "smc_plain_ms": k1["smc_pe"]["plain_ms"] + k1["smc_inj"]["plain_ms"],
+            "smc_library_ms": k1["smc_pe"]["library_ms"] + k1["smc_inj"]["library_ms"],
+            "smc_bound_ms": k1["smc_pe"]["bound_ms"] + k1["smc_inj"]["bound_ms"],
+            # the launches under each of the other engines (two a model run)
+            "hmc_launches": hmc_launches,
+            "svi_launches": svi_launches,
+            "smc_launches": smc_launches,
+            "smc_stages": smc_stages,
+            "smc_peak_gb": smc_peak,
+            "svi_ms_per_step": svi_ms,
         },
         # one gradient's launches: the PE bank and the injection rows
         dict(k2_common, name="K2 streamed forward", replaces=STREAMED_FWD_KERNEL.replaces,

@@ -1,16 +1,25 @@
 """MCMC engine: warmup adaptation and sampling over a batched chain axis.
 
 Counterpart of the synchronous vectorized engine of
-``gwinferno_tpu/infer/mcmc.py``: every step runs one NUTS transition for all
-chains (each chain's tree grows only while it is active), then per-chain
-adaptation during warmup: dual-averaging step size, and a Welford mass
-matrix (diagonal or dense) refreshed at the end of each Stan slow window.
+``gwinferno_tpu/infer/mcmc.py``: every step runs one transition of the
+kernel (:class:`~gwinferno_tpu_torch.infer.NUTS` or
+:class:`~gwinferno_tpu_torch.infer.HMC`, through their ``make_init`` /
+``make_transition``) for all chains, then per-chain adaptation during
+warmup: dual-averaging step size, and a Welford mass matrix (diagonal or
+dense) refreshed at the end of each Stan slow window.  With
+``collective_adaptation`` the step size follows the chains' mean accept
+probability and each window's mass matrix is the Chan-pooled covariance of
+all chains.  A run resumes from ``post_warmup_state`` (a completed run's, or
+:func:`~gwinferno_tpu_torch.utils.checkpoint.load_checkpoint`'s) without
+warmup or step-size search.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -26,24 +35,39 @@ from .hmc_util import identity_mass_matrix
 from .hmc_util import mass_matrix_from_inverse
 from .hmc_util import welford_covariance
 from .hmc_util import welford_init
+from .hmc_util import welford_pool
 from .hmc_util import welford_update
-from .nuts import nuts_init
-from .nuts import nuts_transition
 
 __all__ = ["MCMC"]
 
+_CHAIN_METHODS = ("vectorized", "parallel", "sequential")
 _EXTRA_FIELDS = ("accept_prob", "diverging", "num_steps", "energy", "potential_energy", "tree_depth")
 
 
 class MCMC:
-    """Run a NUTS kernel: warmup (dual-averaging step size + Welford mass
-    matrix in Stan windows), then sampling.
+    """Run an HMC or NUTS kernel: warmup (dual-averaging step size + Welford
+    mass matrix in Stan windows), then sampling.
 
-    ``run(rng_seed, *model_args, init_params=None, **model_kwargs)`` draws
-    every random number from one ``torch.Generator`` on ``device`` seeded
-    with ``rng_seed``.  ``init_params`` maps site names to constrained
-    values, site-shaped or with a leading ``(num_chains,)`` axis; without it
-    the chains start from :func:`find_valid_initial_params`.
+    ``run(rng_seed, *model_args, init_params=None, post_warmup_state=None,
+    **model_kwargs)`` draws every random number from one ``torch.Generator``
+    on ``device`` seeded with ``rng_seed``.  ``init_params`` maps site names
+    to constrained values, site-shaped or with a leading ``(num_chains,)``
+    axis; without it the chains start from :func:`find_valid_initial_params`.
+
+    ``post_warmup_state`` resumes: the chains start from its positions,
+    inverse mass matrix and step size, with no warmup and no step-size
+    search, and its ``rng_key`` (a generator state this engine wrote)
+    replaces the seed's stream, so a resumed run continues the saved one.
+    A ``rng_key`` that is not such a state (the JAX package's PRNG key, from
+    a checkpoint it wrote) gives way to ``rng_seed``.  Every run sets
+    ``post_warmup_state`` for the next.
+
+    ``chain_method``: ``"vectorized"`` (all chains in one batch), or
+    ``"sequential"`` (one chain after another, each a whole run with its own
+    adaptation); ``chain_batch_size=B`` runs the vectorized engine on
+    batches of ``B`` chains one after another.  ``"parallel"`` runs
+    vectorized on one device (it says so on stderr); sharding the chains
+    over several devices is not ported (ROADMAP M11) and raises.
 
     ``max_steps_per_call`` (None or a positive int) is accepted because the
     configs set it.  In the JAX package it cuts the fused scan into host
@@ -52,76 +76,179 @@ class MCMC:
     """
 
     def __init__(self, kernel, num_warmup=500, num_samples=1500, num_chains=1, thinning=1,
+                 collective_adaptation=False, chain_method="vectorized", chain_batch_size=None,
                  device=None, dtype=torch.float32, max_steps_per_call=None):
         if max_steps_per_call is not None and (int(max_steps_per_call) != max_steps_per_call
                                                or max_steps_per_call < 1):
             raise ValueError(f"max_steps_per_call must be None or a positive integer, got {max_steps_per_call!r}")
+        if chain_method not in _CHAIN_METHODS:
+            raise ValueError(f"chain_method must be one of {_CHAIN_METHODS}, got {chain_method!r}")
+        if chain_method == "sequential" and collective_adaptation:
+            raise ValueError("collective_adaptation requires a batched chain axis (vectorized/parallel)")
+        if chain_batch_size is not None:
+            if chain_method != "vectorized":
+                raise ValueError("chain_batch_size needs chain_method='vectorized'")
+            if collective_adaptation:
+                raise ValueError("chain_batch_size pools nothing across batches; collective_adaptation "
+                                 "needs all chains in one batch")
+            if int(num_chains) % int(chain_batch_size) != 0:
+                raise ValueError(f"chain_batch_size={chain_batch_size} must divide num_chains={num_chains}")
         self.max_steps_per_call = max_steps_per_call
         self.kernel = kernel
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
         self.num_chains = int(num_chains)
         self.thinning = int(thinning)
+        self.collective_adaptation = bool(collective_adaptation)
+        self.chain_method = chain_method
+        self.chain_batch_size = None if chain_batch_size is None else int(chain_batch_size)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.timings = {}
+        self.post_warmup_state = None
+        self._adapt_info = None
         self._potential = None
         self._collected_z = None
         self._extra = None
 
-    def _sync(self):
+    def _tick(self, key, t0):
+        """Add the seconds since ``t0`` to ``timings[key]`` (the device
+        synchronized first); returns now."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[key] = self.timings.get(key, 0.0) + now - t0
+        return now
 
-    def run(self, rng_seed, *model_args, init_params=None, **model_kwargs):
+    def _batch_size(self):
+        if self.chain_method == "sequential":
+            return 1
+        if self.chain_method == "parallel" and self.device.type == "cuda":
+            ndev = torch.cuda.device_count()
+            if ndev > 1 and self.num_chains % ndev == 0:
+                raise NotImplementedError(
+                    f"chain_method='parallel' over {ndev} devices is not ported yet (ROADMAP M11)")
+        if self.chain_method == "parallel":
+            print(f"chain_method='parallel': {self.num_chains} chains on one device; running vectorized",
+                  file=sys.stderr)
+        return self.chain_batch_size or self.num_chains
+
+    def _resume_inputs(self, saved, dim, generator):
+        """Positions ``(C, dim)``, inverse mass matrices and step sizes
+        ``(C,)`` of a saved ``post_warmup_state`` on this run's device and
+        dtype; restores the generator from its ``rng_key`` when that is one
+        of this engine's generator states."""
+        def tensor(v):
+            if isinstance(v, torch.Tensor):
+                return v.detach().to(self.device, self.dtype)
+            return torch.as_tensor(np.asarray(v), dtype=self.dtype, device=self.device)
+
+        nc = self.num_chains
+        z, inv, ss = tensor(saved["state"][0]), tensor(saved["inverse_mass_matrix"]), tensor(saved["step_size"])
+        dense = bool(getattr(self.kernel, "dense_mass", False))
+        want = (nc, dim, dim) if dense else (nc, dim)
+        if tuple(z.shape) != (nc, dim) or tuple(inv.shape) != want or tuple(ss.shape) != (nc,):
+            raise ValueError(f"post_warmup_state holds positions {tuple(z.shape)}, inverse mass matrix "
+                             f"{tuple(inv.shape)} and step size {tuple(ss.shape)}; this run needs "
+                             f"{(nc, dim)}, {want} and {(nc,)}")
+        key = saved.get("rng_key")
+        if key is not None:
+            key = key.detach().cpu() if isinstance(key, torch.Tensor) else torch.from_numpy(np.array(key))
+            if key.dtype == torch.uint8 and key.numel() == generator.get_state().numel():
+                generator.set_state(key.contiguous())
+        return z, inv, ss
+
+    def run(self, rng_seed, *model_args, init_params=None, post_warmup_state=None, **model_kwargs):
         k = self.kernel
         nc, dev, dtype = self.num_chains, self.device, self.dtype
+        self.timings = {}
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(int(rng_seed))
         potential = ModelPotential(k.model, model_args, model_kwargs, device=dev, dtype=dtype)
         self._potential = potential
         dim = potential.dim
+        batch = self._batch_size()
 
-        if init_params is not None:
-            z0 = potential.unconstrain(init_params, nc)
+        resume = post_warmup_state is not None
+        if resume:
+            z0, inv0, ss0 = self._resume_inputs(post_warmup_state, dim, gen)
         else:
-            z0 = find_valid_initial_params(potential, nc, gen)
-        state = nuts_init(potential, z0)
-        mm = identity_mass_matrix(nc, dim, k.dense_mass, dtype, dev)
-        if k.adapt_step_size:
+            if init_params is not None:
+                z0 = potential.unconstrain(init_params, nc)
+            else:
+                z0 = find_valid_initial_params(potential, nc, gen)
+            inv0 = identity_mass_matrix(nc, dim, k.dense_mass, dtype, dev).inverse
+            ss0 = torch.full((nc,), float(k.step_size), dtype=dtype, device=dev)
+        self._tick("init", t0)
+
+        num_warmup = 0 if resume else self.num_warmup
+        find_ss0 = k.adapt_step_size and not resume
+        outs = [self._run_batch(potential, z0[c : c + batch], inv0[c : c + batch], ss0[c : c + batch], gen,
+                                num_warmup, find_ss0)
+                for c in range(0, nc, batch)]
+        state = type(outs[0][0])(*(torch.cat(f) for f in zip(*(o[0] for o in outs))))
+        inverse, mass_chol, step_size = (torch.cat([o[i] for o in outs]) for i in (1, 2, 3))
+        self._collected_z = torch.cat([o[4] for o in outs], dim=1)
+        self._extra = {f: torch.cat([o[5][f] for o in outs], dim=1) for f in _EXTRA_FIELDS}
+        self._adapt_info = {"step_size": step_size, "inverse_mass_matrix": inverse}
+        self.post_warmup_state = {
+            "state": tuple(state),
+            "inverse_mass_matrix": inverse,
+            "mass_chol": mass_chol,
+            "step_size": step_size,
+            "rng_key": gen.get_state(),
+        }
+        return self
+
+    def _run_batch(self, potential, z0, inv0, ss0, gen, num_warmup, find_ss0):
+        """One whole run (warmup, if any, then sampling) of the chains
+        ``z0``.  Returns ``(last state, inverse mass matrix, its mass
+        Cholesky factor, final step size, positions (S, C, dim), extra
+        fields {name: (S, C)})``."""
+        k = self.kernel
+        nc, dim, dev, dtype = z0.shape[0], z0.shape[1], self.device, self.dtype
+        t0 = time.perf_counter()
+        transition = k.make_transition(potential)
+        state = k.make_init(potential)(z0)
+        mm = mass_matrix_from_inverse(inv0)
+        if find_ss0:
             step_size = find_reasonable_step_size(potential, mm, state.z, gen, k.step_size,
                                                   pe_grad=(state.pe, state.grad))
         else:
-            step_size = torch.full((nc,), float(k.step_size), dtype=dtype, device=dev)
+            step_size = ss0
         da = da_init(step_size)
         wf = welford_init(nc, dim, k.dense_mass, dtype, dev)
         ss_final = step_size
-        self._sync()
-        self.timings["init"] = time.perf_counter() - t0
+        t_phase = self._tick("init", t0)
 
-        W = self.num_warmup
+        W = num_warmup
         window_end, in_slow = build_warmup_schedule(W, k.adapt_mass_matrix)
         total = self.num_samples * self.thinning
         zs, extra = [], {f: [] for f in _EXTRA_FIELDS}
-        t_phase = time.perf_counter()
         for t in range(W + total):
             warm = t < W
             ss = torch.exp(da.log_step) if warm else ss_final
-            state = nuts_transition(potential, state, mm, ss, gen, k.max_tree_depth, k.max_delta_energy)
+            state = transition(state, mm, ss, gen)
             if warm:
                 if k.adapt_step_size:
-                    da = da_update(da, state.accept_prob, target=k.target_accept_prob)
+                    accept = state.accept_prob
+                    if self.collective_adaptation:
+                        accept = accept.mean().expand_as(accept)
+                    da = da_update(da, accept, target=k.target_accept_prob)
                 if k.adapt_mass_matrix and in_slow[t]:
                     wf = welford_update(wf, state.z)
                 if k.adapt_mass_matrix and window_end[t]:
-                    mm = mass_matrix_from_inverse(welford_covariance(wf))
+                    if self.collective_adaptation:
+                        cov = welford_covariance(welford_pool(wf))  # one pooled chain
+                        cov = cov.expand((nc,) + cov.shape[1:]).contiguous()
+                    else:
+                        cov = welford_covariance(wf)
+                    mm = mass_matrix_from_inverse(cov)
                     da = da_init(torch.exp(da.log_step))  # keep the step size, restart its averaging
                     wf = welford_init(nc, dim, k.dense_mass, dtype, dev)
                 if t == W - 1:
                     ss_final = torch.exp(da.log_step_avg) if k.adapt_step_size else ss
-                    self._sync()
-                    self.timings["warmup"] = time.perf_counter() - t_phase
-                    t_phase = time.perf_counter()
+                    t_phase = self._tick("warmup", t_phase)
             elif (t - W + 1) % self.thinning == 0:
                 zs.append(state.z)
                 extra["accept_prob"].append(state.accept_prob)
@@ -130,12 +257,11 @@ class MCMC:
                 extra["energy"].append(state.energy)
                 extra["potential_energy"].append(state.pe)
                 extra["tree_depth"].append(state.tree_depth)
-        self._sync()
-        self.timings["sample"] = time.perf_counter() - t_phase
+        self._tick("sample", t_phase)
 
-        self._collected_z = torch.stack(zs) if zs else torch.zeros(0, nc, dim, dtype=dtype, device=dev)
-        self._extra = {f: torch.stack(v) if v else torch.zeros(0, nc, device=dev) for f, v in extra.items()}
-        return self
+        collected = torch.stack(zs) if zs else torch.zeros(0, nc, dim, dtype=dtype, device=dev)
+        extra = {f: torch.stack(v) if v else torch.zeros(0, nc, device=dev) for f, v in extra.items()}
+        return state, mm.inverse, mm.mass_chol, ss_final, collected, extra
 
     def get_samples(self, group_by_chain=False):
         """Constrained samples ``{site: (num_samples * num_chains, *shape)}``

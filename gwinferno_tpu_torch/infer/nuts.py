@@ -365,3 +365,13 @@ class NUTS:
         self.target_accept_prob = target_accept_prob
         self.max_tree_depth = max_tree_depth
         self.max_delta_energy = max_delta_energy
+
+    def make_transition(self, potential_fn):
+        def transition(state, mm, step_size, generator):
+            return nuts_transition(potential_fn, state, mm, step_size, generator,
+                                   self.max_tree_depth, self.max_delta_energy)
+
+        return transition
+
+    def make_init(self, potential_fn):
+        return lambda z: nuts_init(potential_fn, z)

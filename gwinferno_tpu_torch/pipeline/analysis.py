@@ -18,7 +18,9 @@ import torch
 
 from .. import ppl
 from ..cosmology import PLANCK_2015_LVK_Cosmology
+from ..infer import HMC
 from ..infer import NUTS
+from ..infer import find_map  # re-exported, as the JAX package's analysis module does
 from ..ops.fused import double_logsumexp
 from ..population_distributions import PowerlawRedshift
 from ..population_distributions import interp
@@ -29,6 +31,7 @@ from .parser import PopPrior
 
 __all__ = [
     "NP_KERNEL_MAP",
+    "find_map",
     "per_event_log_bayes_factors",
     "detection_efficiency",
     "hierarchical_likelihood",
@@ -36,11 +39,7 @@ __all__ = [
 ]
 
 
-def _hmc_not_ported(*args, **kwargs):
-    raise NotImplementedError("the HMC kernel is not ported yet (ROADMAP M9); use NUTS")
-
-
-NP_KERNEL_MAP = {"NUTS": NUTS, "HMC": _hmc_not_ported}
+NP_KERNEL_MAP = {"NUTS": NUTS, "HMC": HMC}
 
 
 def per_event_log_bayes_factors(log_weights):

@@ -5,7 +5,7 @@ Counterpart of ``gwinferno_tpu/pipeline/cli.py``.  Run from a shell as
     python -m gwinferno_tpu_torch.pipeline.cli config.yml [--inspect] [--rngkey N] [--device cpu] [--dtype float64]
 
 It parses the YAML config, builds the hierarchical model, loads the catalog
-named by ``data.pe_inj_file``, runs the ``sampler`` block (NUTS) on the card
+named by ``data.pe_inj_file``, runs the ``sampler`` block (NUTS or HMC) on the card
 (on the CPU only when asked), prints the posterior summary and writes
 ``{outdir}/{label}_posterior_samples.h5`` and a trace plot.
 

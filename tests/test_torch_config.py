@@ -408,9 +408,34 @@ def test_mcmc_print_summary_and_max_steps_per_call(capsys):
 
 
 def test_kernel_map_holds_nuts_and_hmc_raises():
+    """The config's ``sampler.kernel`` names the port's NUTS or HMC; HMC no
+    longer raises."""
+    from gwinferno_tpu_torch.infer import HMC
+
     assert analysis.NP_KERNEL_MAP["NUTS"] is NUTS
-    with pytest.raises(NotImplementedError, match="M9"):
-        analysis.NP_KERNEL_MAP["HMC"](lambda: None)
+    assert analysis.NP_KERNEL_MAP["HMC"] is HMC
+    assert HMC(lambda: None, trajectory_length=0.5).trajectory_length == 0.5
+
+
+def test_run_config_with_the_hmc_kernel(tmp_path, capsys):
+    """``kernel: HMC`` in the sampler block runs through ``run_config`` on
+    the config-validation catalog: every site and deterministic site finite,
+    ``ceil(L / step size)`` leapfrogs a transition, no tree."""
+    path, conf = _tmp_config(tmp_path)
+    conf["sampler"]["kernel"] = "HMC"
+    conf["sampler"]["kernel_kwargs"] = {"dense_mass": True, "trajectory_length": 0.2}
+    reader = ConfigReader()
+    reader.parse_dict(conf)
+    pe, inj, const, _ = load_pe_and_injections_as_dict(CONFIG_VAL_DATA)
+    mcmc, posterior = cli.run_config(reader, pe, inj, const, rng_seed=1, device="cpu", dtype=torch.float64)
+    assert "Number of divergences" in capsys.readouterr().out
+    assert type(mcmc.kernel).__name__ == "HMC" and mcmc.kernel.trajectory_length == 0.2
+    assert set(cli.DETERMINISTIC_SITES) <= set(posterior)
+    assert all(tuple(v.shape) == (6,) and bool(torch.isfinite(v).all()) for v in posterior.values())
+    extra = mcmc.get_extra_fields(group_by_chain=True)
+    steps = torch.ceil(0.2 / mcmc._adapt_info["step_size"]).clamp(1, 1023).to(torch.int64)
+    assert torch.equal(extra["num_steps"], steps[:, None].expand(2, 3))
+    assert int(extra["tree_depth"].abs().sum()) == 0
 
 
 def _tmp_config(tmp_path):

@@ -123,7 +123,7 @@ def test_jax_package_paths_never_fall_back_to_the_jax_package():
     raises ImportError without any attempt to import the JAX package."""
     code = _SPY + (
         "from gwinferno_tpu_torch.pipeline.parser import load_dist_from_string\n"
-        "for p in ('gwinferno_tpu.infer.svi.find_map', 'gwinferno.pipeline.analysis.find_map',\n"
+        "for p in ('gwinferno_tpu.parallel.mesh.create_mesh', 'gwinferno.parallel.sharding.shard_chain_state',\n"
         "          'gwinferno_tpu.ops.chunked.chunked_summaries', 'numpyro.distributions.StudentT',\n"
         "          'jax.numpy.sum'):\n"
         "    try:\n"
@@ -132,6 +132,9 @@ def test_jax_package_paths_never_fall_back_to_the_jax_package():
         "        assert 'not imported' in str(e), e\n"
         "    else:\n"
         "        raise AssertionError(p)\n"
+        "from gwinferno_tpu_torch.infer.svi import find_map\n"
+        "for p in ('gwinferno_tpu.infer.svi.find_map', 'gwinferno.pipeline.analysis.find_map'):\n"
+        "    assert load_dist_from_string(p) is find_map, p\n"
         "assert Spy.seen == [], Spy.seen\n"
         "print('ok')\n"
     )
@@ -139,6 +142,14 @@ def test_jax_package_paths_never_fall_back_to_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_the_module_walk_covers_the_engines():
+    """The import checks above walk every module of the port, the inference
+    engines and the checkpoint module among them."""
+    walked = {os.path.relpath(p, PKG) for p in _port_files()}
+    engines = {os.path.join("infer", n) for n in ("hmc.py", "mcmc.py", "nuts.py", "smc.py", "svi.py")}
+    assert engines | {os.path.join("utils", "checkpoint.py")} <= walked
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

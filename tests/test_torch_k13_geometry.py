@@ -60,6 +60,31 @@ def test_k1_geometry_fits_the_rows_and_the_card(shape, num_sms, dtype):
         assert g.n_tiles > 1 and g.blocks >= num_sms // 2
 
 
+# K1's calls under SMC on the bench model's flat route: 1024 particles
+# (the JAX package's default) over the PE bank and the injections
+K1_SMC_SHAPES = {"smc_pe": (1024 * 69, 8000), "smc_inj": (1024, 46770)}
+
+
+@pytest.mark.parametrize("shape", K1_SMC_SHAPES)
+@pytest.mark.parametrize("num_sms", [132, 114])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_k1_geometry_at_the_smc_shapes(shape, num_sms, dtype):
+    """At SMC's shapes the grid is whole waves: it fills at least 90% of
+    one wave of the card and uses at least 80% of the slots of the waves it
+    runs in; the tiles cover every row.  The PE call's last row starts
+    5.65e8 elements (2.26 GB in float32) in, past a 32-bit byte offset."""
+    rows, n = K1_SMC_SHAPES[shape]
+    bps = 8 if dtype == torch.float32 else 3  # the kernel's occupancy on an H100
+    g = fused.dlse_geometry(rows, n, dtype, num_sms, bps)
+    wave = num_sms * g.resident
+    assert g.blocks >= 0.9 * wave and g.waves / math.ceil(g.waves) >= 0.8
+    assert g.tile % (fused._THREADS * fused._vec(dtype)) == 0
+    assert (g.n_tiles - 1) * g.tile < n <= g.n_tiles * g.tile and g.blocks == rows * g.n_tiles
+    assert g.part_shape == ((rows, g.n_tiles, 3) if g.n_tiles > 1 else None)
+    if shape == "smc_pe":
+        assert (rows - 1) * n * 4 > 2**31
+
+
 @pytest.mark.parametrize("bank", K3_BANKS)
 @pytest.mark.parametrize("num_sms", [132, 114])
 @pytest.mark.parametrize("num_chains", [1, 8, 16, 17])
