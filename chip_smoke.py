@@ -25,6 +25,10 @@ and with its wall time as it ends:
    catalog), then a 16-chain dense-mass NUTS run (depth 6) with warmup,
    saved with ``save_checkpoint``, loaded and resumed for 10 samples through
    ``post_warmup_state`` (no warmup, step size and mass matrix bit for bit);
+   then the schedulers: the same run at 5 + 5 transitions under the sync
+   scheduler and the async one at L = 1 and L = 4, equal bit for bit, each
+   run's model runs and host reads by its scheduler's formula
+   (:func:`loop_model_runs`);
 5. K2 (``ops/csrc/streamed.cu``, the streamed whole-chain likelihood,
    forward and backward) held against its plain torch version on the
    streamed route's two banks (PE ``(69, 8000)``, injections ``(6, 8192)``)
@@ -86,6 +90,13 @@ route (where K1 must not run either), K1's again from the config route,
 where it must launch exactly twice per model evaluation and K2 and K3 not
 at all, and so under HMC, SVI and SMC, each counted on its own (a model
 evaluation: one run of the model, counted by its ``log_likelihood`` site).
+
+Every NUTS run goes through the default scheduler, the async one (16 chains
+on the flat and streamed routes, 8 on the B-spline route, 4 on the config
+route); each checks that its model runs are those outside the transition
+loop (a run with no transitions from the same seed and starts) plus the
+async formula for its ``num_steps``, one host read a round, and prints the
+sync formula's count beside it.
 
 Any failure raises, with a traceback and a non-zero exit code; no phase
 catches its own failure.  Without CUDA the script exits non-zero before
@@ -278,6 +289,8 @@ SMC_PARTICLES, SMC_MUTATIONS = 1024, 5
 # beta = 0.  smc_base_walls measures both at each scale (PERF.md).
 SMC_BASE_SCALE = 0.2
 RESUME_SAMPLES = 10
+# the scheduler phase's transitions on the flat route
+SCHED_WARMUP, SCHED_SAMPLES = 5, 5
 
 # synthetic search: proxy SNR ~ Mc_det^(5/6) / DL with a random projection
 D0_MPC = 1600.0
@@ -645,17 +658,18 @@ def check_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=1
 
 
 def run_nuts(model, args, init, label):
-    """A 16-chain dense-mass NUTS run (depth 6) of ``model`` from ``init``;
-    checks that every site's samples are finite and prints the run's
-    summary.  Returns the MCMC object."""
+    """A 16-chain dense-mass NUTS run (depth 6) of ``model`` from ``init``
+    (the default scheduler: async); checks that every site's samples are
+    finite and prints the run's summary.  Returns the MCMC object and its
+    model runs."""
     dev, dtype = torch.device("cuda"), torch.float32
     with phase(f"NUTS on the {label} route: {args.warmup} warmup + {args.samples} samples, {N_CHAINS} chains, "
-               f"dense mass, depth {MAX_TREE_DEPTH}"):
+               f"dense mass, depth {MAX_TREE_DEPTH}"), ModelRuns() as runs:
         mcmc = MCMC(
             NUTS(model, dense_mass=True, max_tree_depth=MAX_TREE_DEPTH),
             num_warmup=args.warmup, num_samples=args.samples, num_chains=N_CHAINS, device=dev, dtype=dtype,
         )
-        mcmc.run(args.seed, init_params={k: v.to(dev, dtype) for k, v in init.items()})
+        mcmc.run(args.seed, init_params=flat_starts(init))
         torch.cuda.synchronize()
     samples = mcmc.get_samples(group_by_chain=True)
     extra = mcmc.get_extra_fields()
@@ -677,7 +691,11 @@ def run_nuts(model, args, init, label):
         f"leapfrogs in sampling {int(extra['num_steps'].sum())}"
     )
     log("  posterior means: " + ", ".join(f"{k}={float(v.double().mean()):.3f}" for k, v in sorted(samples.items())))
-    return mcmc
+    return mcmc, runs.runs
+
+
+def flat_starts(init):
+    return {k: v.to("cuda", torch.float32) for k, v in init.items()}
 
 
 def flat_route(args, gen):
@@ -711,12 +729,14 @@ def flat_route(args, gen):
         if not bool((pe.abs() < 1e30).all()):
             raise AssertionError("fiducial starts sit on a likelihood wall")
         log(f"  potential range [{float(pe.min()):.3f}, {float(pe.max()):.3f}], |grad| max {float(grad.abs().max()):.3e}")
-    mcmc = run_nuts(model, args, init, "flat")
+    mcmc, runs = run_nuts(model, args, init, "flat")
     launches = DLSE_KERNEL.launches
     if launches == 0:
         raise AssertionError("K1 was not launched on the flat route")
     log(f"  K1 launches on the flat route: {launches}")
+    check_async_runs("flat", mcmc, runs, outside_loop_runs(mcmc, args.seed, init_params=flat_starts(init)))
     resume_flat(mcmc, model, args)
+    scheduler_phase(model, args, init)
     return launches, (pedict, injdict, constants, z_model), init, potential, z0
 
 
@@ -725,8 +745,9 @@ def resume_flat(mcmc, model, args):
     temporary file, loaded with ``load_checkpoint`` and resumed for
     ``RESUME_SAMPLES`` samples through ``post_warmup_state``: no warmup and
     no step-size search run (the model runs once for the starts' gradient,
-    then once per leapfrog round), the step size and inverse mass matrix
-    carry over bit for bit, and the samples are finite."""
+    then ``max_c sum_t num_steps`` times, the async formula), the step size
+    and inverse mass matrix carry over bit for bit, and the samples are
+    finite."""
     with phase(f"resume the flat route's NUTS run from a checkpoint: {RESUME_SAMPLES} samples, {N_CHAINS} chains"):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "flat_route.npz")
@@ -738,11 +759,13 @@ def resume_flat(mcmc, model, args):
         with ModelRuns() as runs:
             resumed.run(args.seed + 1, post_warmup_state=saved)
             torch.cuda.synchronize()
-        steps = resumed.get_extra_fields(group_by_chain=True)["num_steps"]
-        rounds = 2 + int(steps.max(0).values.sum())
+        steps = resumed.transition_steps
+        rounds = 2 + loop_model_runs(steps, "async")
         log(f"  checkpoint {size} bytes; {runs.runs} model runs ({rounds} expected: the site probe, the starts' "
-            f"gradient and one per leapfrog round of {RESUME_SAMPLES} transitions); timings {sorted(resumed.timings)}")
-        if runs.runs != rounds or "warmup" in resumed.timings:
+            f"gradient and the async loop's max over chains of its leapfrogs in {RESUME_SAMPLES} transitions; "
+            f"the sync formula gives {2 + loop_model_runs(steps, 'sync')}); {resumed.host_reads} host reads; "
+            f"timings {sorted(resumed.timings)}")
+        if runs.runs != rounds or "warmup" in resumed.timings or resumed.host_reads != rounds - 2:
             raise AssertionError(f"the resumed run did more than sample: {runs.runs} model runs, {rounds} expected")
         for key in ("step_size", "inverse_mass_matrix"):
             if not torch.equal(resumed._adapt_info[key], mcmc._adapt_info[key]):
@@ -927,13 +950,14 @@ def streamed_route(args, model_s, init, flat_potential, z0):
     DLSE_KERNEL.launches = 0
     STREAMED_FWD_KERNEL.launches = 0
     STREAMED_BWD_KERNEL.launches = 0
-    run_nuts(model_s, args, init, "streamed")
+    mcmc, runs = run_nuts(model_s, args, init, "streamed")
     n_fwd, n_bwd, n_k1 = STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, DLSE_KERNEL.launches
     log(f"  launches on the streamed route: K2 forward {n_fwd}, K2 backward {n_bwd}, K1 {n_k1}")
     if n_fwd == 0 or n_bwd == 0:
         raise AssertionError("K2 was not launched on the streamed route")
     if n_k1 != 0:
         raise AssertionError("K1 ran on the streamed route, whose tail is plain torch")
+    check_async_runs("streamed", mcmc, runs, outside_loop_runs(mcmc, args.seed, init_params=flat_starts(init)))
     with phase("profile of one potential + gradient per route"):
         profile_routes({"flat": flat_potential, "streamed": potential}, z0)
     return n_fwd, n_bwd, ms["flat"], ms["streamed"]
@@ -1248,7 +1272,8 @@ def bspline_nuts(pedict, injdict, constants, bargs):
     FLW_KERNEL.launches = 0
     DLSE_KERNEL.launches = 0
     with phase(f"NUTS on the B-spline fused route: {bargs.warmup} warmup + {bargs.samples} samples, "
-               f"{bargs.chains} chains, whitened, target {bargs.target_accept}, diagonal mass, depth {bargs.max_tree_depth}"):
+               f"{bargs.chains} chains, whitened, target {bargs.target_accept}, diagonal mass, depth {bargs.max_tree_depth}"), \
+            ModelRuns() as runs:
         posterior, models = run_bspline_analysis(pedict, injdict, constants, list(pedict), bargs, device="cuda",
                                                  dtype=torch.float32)
         torch.cuda.synchronize()
@@ -1261,6 +1286,8 @@ def bspline_nuts(pedict, injdict, constants, bargs):
     mcmc = models["_mcmc"]
     extra = mcmc.get_extra_fields()
     n_draws = bargs.samples * bargs.chains
+    # get_deterministic runs the model once a batch of 64 draws
+    check_async_runs("B-spline fused", mcmc, runs.runs - math.ceil(n_draws / 64), outside_loop_runs(mcmc, bargs.rngkey))
     for k, v in posterior.items():
         if v.shape[0] != n_draws or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"B-spline route, site {k}: values of shape {tuple(v.shape)} not finite")
@@ -1298,6 +1325,104 @@ def bspline_route(args, catalog, gen):
     del models, routes, pot_f
     torch.cuda.empty_cache()
     return k3, bspline_nuts(pedict, injdict, constants, bargs), ms
+
+
+# ----------------------------------------------------------------- scheduler
+
+
+def loop_model_runs(steps, scheduler, leapfrogs=1, segment=None):
+    """Model runs of ``MCMC``'s transition loop, from the leapfrogs
+    ``steps`` ``(T, C)`` of every transition (``MCMC.transition_steps``):
+    sync, one a leapfrog round, ``sum_t max_c steps``; async, ``leapfrogs``
+    a round, where chain ``c`` needs ``sum_t ceil(steps / leapfrogs)``
+    rounds and the chains wait for each other at the end of each
+    ``segment`` transitions: ``sum_seg max_c sum_t L * ceil(steps / L)``.
+    Not for collective adaptation under async, whose window barrier parks
+    chains."""
+    steps = torch.as_tensor(steps, dtype=torch.int64)
+    if scheduler == "sync":
+        return int(steps.max(1).values.sum())
+    seg = segment or max(steps.shape[0], 1)
+    rounds = (steps + leapfrogs - 1) // leapfrogs
+    return leapfrogs * sum(int(rounds[s : s + seg].sum(0).max()) for s in range(0, steps.shape[0], seg))
+
+
+def outside_loop_runs(mcmc, seed, *model_args, init_params=None):
+    """Model runs of ``mcmc``'s run outside its transition loop (the site
+    probe, the starts' search or gradient, the step-size search): those of
+    a run of the same kernel, chains, device and dtype with no transitions,
+    from the same seed and starts."""
+    again = MCMC(mcmc.kernel, num_warmup=0, num_samples=0, num_chains=mcmc.num_chains, device=mcmc.device,
+                 dtype=mcmc.dtype)
+    with ModelRuns() as runs:
+        again.run(seed, *model_args, init_params=init_params)
+    return runs.runs
+
+
+def check_async_runs(label, mcmc, runs, outside):
+    """A NUTS route's run went through the async scheduler: its ``runs``
+    model runs are ``outside`` the loop plus the async formula for its
+    ``num_steps``, one host read a round; prints the sync formula's count
+    for the same ``num_steps`` beside them."""
+    steps = mcmc.transition_steps
+    loop = loop_model_runs(steps, "async", 1, mcmc.max_steps_per_call)
+    sync = loop_model_runs(steps, "sync")
+    log(f"  model runs {runs} = {outside} outside the loop + {loop} in it (async: per segment, the max over chains "
+        f"of the sum of its leapfrogs); the sync formula gives {sync} for the same num_steps "
+        f"({sync / max(loop, 1):.3f}x); {mcmc.host_reads} host reads")
+    if runs != outside + loop or mcmc.host_reads != loop:
+        raise AssertionError(f"{label} route: {runs} model runs and {mcmc.host_reads} host reads; the async "
+                             f"scheduler gives {outside} + {loop} and {loop}")
+
+
+def _same_run(a, b):
+    """The fields of two runs that differ, of the samples, the six extra
+    fields, the step size, the inverse mass matrix and the final generator
+    state."""
+    diff = [k for k, v in a.get_samples().items() if not torch.equal(v, b.get_samples()[k])]
+    diff += [k for k, v in a.get_extra_fields().items() if not torch.equal(v, b.get_extra_fields()[k])]
+    return diff + [k for k in ("step_size", "inverse_mass_matrix", "rng_key")
+                   if not torch.equal(a.post_warmup_state[k], b.post_warmup_state[k])]
+
+
+def scheduler_phase(model, args, init):
+    """The flat route's NUTS run (16 chains, dense mass, depth 6, the same
+    seed and starts) at ``SCHED_WARMUP`` + ``SCHED_SAMPLES`` transitions
+    under the sync scheduler, the async one at L = 1 and at L = 4: the three
+    are equal bit for bit, each run's model runs and host reads follow its
+    scheduler's formula, and K1 launches twice a model run."""
+    kernel = NUTS(model, dense_mass=True, max_tree_depth=MAX_TREE_DEPTH)
+    runs_of = {}
+    with phase(f"schedulers on the flat route: sync, async L=1, async L=4; {SCHED_WARMUP} warmup + "
+               f"{SCHED_SAMPLES} samples, {N_CHAINS} chains, dense mass, depth {MAX_TREE_DEPTH}"):
+        for label, scheduler, L in (("sync", "sync", 1), ("async L=1", "async", 1), ("async L=4", "async", 4)):
+            mcmc = MCMC(kernel, num_warmup=SCHED_WARMUP, num_samples=SCHED_SAMPLES, num_chains=N_CHAINS,
+                        chain_scheduler=scheduler, leapfrogs_per_round=L if scheduler == "async" else None,
+                        device="cuda", dtype=torch.float32)
+            _zero_counts()
+            t0 = time.perf_counter()
+            with ModelRuns() as runs:
+                mcmc.run(args.seed, init_params=flat_starts(init))
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_k1 = _check_k1_only(label, runs.runs)
+            runs_of[label] = (mcmc, runs.runs, n_k1, wall)
+        outside = outside_loop_runs(mcmc, args.seed, init_params=flat_starts(init))
+        base = runs_of["sync"][0]
+        for label, (mcmc, runs, n_k1, wall) in runs_of.items():
+            scheduler, L = ("sync", 1) if label == "sync" else ("async", mcmc.leapfrogs_per_round)
+            loop = loop_model_runs(mcmc.transition_steps, scheduler, L)
+            log(f"  {label}: {runs} model runs ({outside} outside the loop + {loop}), {mcmc.host_reads} host reads, "
+                f"K1 {n_k1} launches, wall {wall:.2f} s (init {mcmc.timings['init']:.2f}, warmup "
+                f"{mcmc.timings['warmup']:.2f}, sampling {mcmc.timings['sample']:.2f})")
+            if runs != outside + loop or mcmc.host_reads != loop // L:
+                raise AssertionError(f"{label}: {runs} model runs and {mcmc.host_reads} host reads, want "
+                                     f"{outside} + {loop} and {loop // L}")
+            diff = _same_run(mcmc, base)
+            if diff:
+                raise AssertionError(f"{label} differs from the sync scheduler's run in {diff}")
+        log("  samples, the six extra fields, step size, inverse mass matrix and generator state equal bit for bit "
+            "across the three runs")
 
 
 # ----------------------------------------------------------------- config route (K1)
@@ -1416,13 +1541,15 @@ def config_nuts(pedict, injdict, constants, args):
         torch.cuda.synchronize()
     n_k1 = DLSE_KERNEL.launches
     others = (STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, FLW_KERNEL.launches)
+    n_draws = args.samples * n_chains
+    check_async_runs("config", mcmc, runs_run - math.ceil(n_draws / 64),
+                     outside_loop_runs(mcmc, args.seed, *mcmc._potential.model_args))
     log(f"  launches on the config route: K1 {n_k1} over {runs.runs} model runs ({runs_run} in run_config, "
         f"{runs.runs - runs_run} for the posterior-predictive site); K2 forward, K2 backward, K3: {others}")
     if n_k1 != 2 * runs.runs or n_k1 == 0:
         raise AssertionError(f"K1 launched {n_k1} times over {runs.runs} model runs; two a run expected")
     if any(others):
         raise AssertionError(f"K2 or K3 ran on the config route: {others}")
-    n_draws = args.samples * n_chains
     want = set(mcmc.get_samples()) | set(DETERMINISTIC_SITES)
     if set(posterior) != want:
         raise AssertionError(f"config posterior has {sorted(posterior)}, want {sorted(want)}")

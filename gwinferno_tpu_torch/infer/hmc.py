@@ -49,17 +49,21 @@ def hmc_draws(state: NUTSState, mm: MassMatrix, generator):
 
 
 def hmc_body(potential_fn, state: NUTSState, mm: MassMatrix, step_size, r0, u,
-             trajectory_length=2.0 * math.pi, max_num_steps=1023):
+             trajectory_length=2.0 * math.pi, max_num_steps=1023, on_read=None):
     """One HMC transition from the draws ``r0`` and ``u``: every chain
     leapfrogs for its own number of steps, then accepts with probability
     ``min(1, exp(-delta))`` (a NaN ``delta`` counts as ``+inf``);
-    ``diverging`` is ``delta > 1000``."""
+    ``diverging`` is ``delta > 1000``.  The largest step count is read to the
+    host once (``on_read()`` is called for it)."""
     step = leapfrog(potential_fn)
     step_size = torch.as_tensor(step_size, dtype=state.z.dtype, device=state.z.device).expand(state.z.shape[0])
     h0 = state.pe + kinetic_energy(mm, r0)
     num_steps = num_leapfrog_steps(trajectory_length, step_size, max_num_steps)
     z, r, pe, grad = state.z, r0, state.pe, state.grad
-    for i in range(int(num_steps.max())):
+    rounds = int(num_steps.max())
+    if on_read is not None:
+        on_read()
+    for i in range(rounds):
         z1, r1, pe1, grad1 = step(z, r, grad, step_size, mm)
         live = i < num_steps
         col = live[:, None]
@@ -84,11 +88,11 @@ def hmc_body(potential_fn, state: NUTSState, mm: MassMatrix, step_size, r0, u,
 
 
 def hmc_transition(potential_fn, state: NUTSState, mm: MassMatrix, step_size, generator,
-                   trajectory_length=2.0 * math.pi, max_num_steps=1023):
+                   trajectory_length=2.0 * math.pi, max_num_steps=1023, on_read=None):
     """One HMC transition for every chain (:func:`hmc_draws`, then
     :func:`hmc_body`)."""
     r0, u = hmc_draws(state, mm, generator)
-    return hmc_body(potential_fn, state, mm, step_size, r0, u, trajectory_length, max_num_steps)
+    return hmc_body(potential_fn, state, mm, step_size, r0, u, trajectory_length, max_num_steps, on_read)
 
 
 class HMC:
@@ -116,10 +120,10 @@ class HMC:
         self.target_accept_prob = target_accept_prob
         self.init_strategy = init_strategy
 
-    def make_transition(self, potential_fn):
+    def make_transition(self, potential_fn, on_read=None):
         def transition(state, mm, step_size, generator):
             return hmc_transition(potential_fn, state, mm, step_size, generator,
-                                  trajectory_length=self.trajectory_length)
+                                  trajectory_length=self.trajectory_length, on_read=on_read)
 
         return transition
 

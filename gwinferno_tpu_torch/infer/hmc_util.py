@@ -23,6 +23,7 @@ __all__ = [
     "velocity",
     "kinetic_energy",
     "sample_momentum",
+    "momentum_from_normal",
     "value_and_grad",
     "leapfrog",
     "WelfordState",
@@ -49,10 +50,6 @@ class MassMatrix(NamedTuple):
     @property
     def is_dense(self):
         return self.inverse.ndim == 3
-
-    def select(self, idx):
-        """The mass matrices of the chains ``idx``."""
-        return MassMatrix(self.inverse[idx], self.mass_chol[idx])
 
 
 def mass_matrix_from_inverse(inverse):
@@ -88,9 +85,14 @@ def kinetic_energy(mm: MassMatrix, r):
     return 0.5 * (r * velocity(mm, r)).sum(-1)
 
 
+def momentum_from_normal(mm: MassMatrix, eps):
+    """Momenta ``mass_chol @ eps`` from unit normals ``eps``."""
+    return _matvec(mm.mass_chol, eps, mm.is_dense)
+
+
 def sample_momentum(mm: MassMatrix, generator, like):
     eps = torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
-    return _matvec(mm.mass_chol, eps, mm.is_dense)
+    return momentum_from_normal(mm, eps)
 
 
 def value_and_grad(potential_fn, z):

@@ -1,10 +1,8 @@
 """MCMC engine: warmup adaptation and sampling over a batched chain axis.
 
-Counterpart of the synchronous vectorized engine of
-``gwinferno_tpu/infer/mcmc.py``: every step runs one transition of the
-kernel (:class:`~gwinferno_tpu_torch.infer.NUTS` or
-:class:`~gwinferno_tpu_torch.infer.HMC`, through their ``make_init`` /
-``make_transition``) for all chains, then per-chain adaptation during
+Counterpart of ``gwinferno_tpu/infer/mcmc.py``.  Every chain runs the
+kernel's transitions (:class:`~gwinferno_tpu_torch.infer.NUTS` or
+:class:`~gwinferno_tpu_torch.infer.HMC`) with per-chain adaptation during
 warmup: dual-averaging step size, and a Welford mass matrix (diagonal or
 dense) refreshed at the end of each Stan slow window.  With
 ``collective_adaptation`` the step size follows the chains' mean accept
@@ -12,10 +10,27 @@ probability and each window's mass matrix is the Chan-pooled covariance of
 all chains.  A run resumes from ``post_warmup_state`` (a completed run's, or
 :func:`~gwinferno_tpu_torch.utils.checkpoint.load_checkpoint`'s) without
 warmup or step-size search.
+
+Two schedulers run the transitions, with the same results bit for bit:
+
+- **sync**: step ``t`` runs one transition of every chain (through the
+  kernel's ``make_transition``), then the adaptation of step ``t``; a NUTS
+  transition lasts as long as the batch's deepest tree.
+- **async** (continuous batching, NUTS only, through
+  :meth:`~gwinferno_tpu_torch.infer.NUTS.make_tree_ops`): each chain runs its
+  own transition state machine on a masked lane and starts its next
+  transition in the round in which it finishes.  A round is
+  ``leapfrogs_per_round`` masked leapfrogs over all lanes, then one read of
+  a few flags to the host, then, only when some chain finished, the
+  bookkeeping of the finished chains at their own step indices.  Transition
+  ``t``'s randomness is drawn for all chains (:func:`~gwinferno_tpu_torch.infer.nuts.tree_draws`)
+  the first time a chain reaches ``t``, so the generator is consumed in the
+  sync engine's order, and chain ``c`` starts from row ``c`` of it.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 
@@ -37,11 +52,27 @@ from .hmc_util import welford_covariance
 from .hmc_util import welford_init
 from .hmc_util import welford_pool
 from .hmc_util import welford_update
+from .nuts import TreeDraws
+from .nuts import select_lanes
+from .nuts import tree_draws
 
 __all__ = ["MCMC"]
 
 _CHAIN_METHODS = ("vectorized", "parallel", "sequential")
-_EXTRA_FIELDS = ("accept_prob", "diverging", "num_steps", "energy", "potential_energy", "tree_depth")
+# the recorded fields and the state field each is read from
+_STATE_OF_FIELD = {"z": "z", "accept_prob": "accept_prob", "diverging": "diverging", "num_steps": "num_steps",
+                   "energy": "energy", "potential_energy": "pe", "tree_depth": "tree_depth"}
+_EXTRA_FIELDS = tuple(_STATE_OF_FIELD)[1:]
+
+
+def _rows(x, sl):
+    """The lanes ``sl`` of a NamedTuple whose fields carry a chain axis."""
+    return type(x)(*(f[sl] for f in x))
+
+
+def _cat(parts):
+    """Concatenate NamedTuples of one type along the chain axis."""
+    return type(parts[0])(*(torch.cat(fs) for fs in zip(*parts)))
 
 
 class MCMC:
@@ -67,33 +98,83 @@ class MCMC:
     adaptation); ``chain_batch_size=B`` runs the vectorized engine on
     batches of ``B`` chains one after another.  ``"parallel"`` runs
     vectorized on one device (it says so on stderr); sharding the chains
-    over several devices is not ported (ROADMAP M11) and raises.
+    over several devices, and ``mesh``, are not ported (ROADMAP M11) and
+    raise.
 
-    ``max_steps_per_call`` (None or a positive int) is accepted because the
-    configs set it.  In the JAX package it cuts the fused scan into host
-    calls of that many transitions and leaves the results unchanged; this
-    loop already takes one transition per host step, so it changes nothing.
+    ``chain_scheduler``: ``"sync"``, ``"async"`` or ``"auto"`` (see the
+    module docstring).  ``auto`` runs async when that is a pure reschedule:
+    a kernel with ``make_tree_ops`` (NUTS), ``chain_method="vectorized"``,
+    no collective adaptation and more than one chain in the batch.
+    ``leapfrogs_per_round`` (async only; None means 1) sets the masked
+    leapfrogs a round runs before its read; the results are the same for
+    every value.  A value above 1 raises in ``run`` when the scheduler
+    resolves to sync (``"auto"`` with one chain in the batch, say).
+    ``chain_groups=G`` runs each transition (sync) or each round's
+    leapfrogs (async) as ``G`` sub-batches of ``C / G`` lanes in turn; a
+    sync sub-batch grows to its own deepest tree.  Under async,
+    ``collective_adaptation`` parks a chain that has finished the next
+    window-end step until every chain has, then runs one pooled window
+    close; the step size's dual averaging stays per chain (each chain's own
+    accept probability at its own step), where the sync collective engine
+    averages the chains' accept probabilities: the JAX package's documented
+    deviation, kept.
+
+    ``max_steps_per_call`` and ``progress_bar`` cut the run into segments:
+    at most ``max_steps_per_call`` transitions, and a tenth of the run with
+    ``progress_bar``, which prints ``[mcmc] {phase} step {done}/{T} ...``
+    to stderr after each.  Async chains wait for each other at a segment's
+    end; the results are the same with or without segments.
+
+    After a run, ``timings`` holds the wall seconds of ``init``, ``warmup``
+    (until the last chain's last warmup transition) and ``sample``;
+    ``host_reads`` the reads from the card to the host in the transition
+    loop (sync: one a leapfrog round of NUTS, one a transition of HMC;
+    async: one a round; one a segment for the progress line); and
+    ``transition_steps`` the leapfrogs of every transition, warmup
+    included, ``(num_warmup + num_samples * thinning, num_chains)``.
+    ``jit_model_args=True`` raises, as in the JAX package; ``chain_axis``
+    is accepted and unused.
     """
 
     def __init__(self, kernel, num_warmup=500, num_samples=1500, num_chains=1, thinning=1,
-                 collective_adaptation=False, chain_method="vectorized", chain_batch_size=None,
-                 device=None, dtype=torch.float32, max_steps_per_call=None):
+                 collective_adaptation=False, chain_method="vectorized", progress_bar=False,
+                 jit_model_args=False, mesh=None, chain_axis="chain", max_steps_per_call=None, chain_groups=1,
+                 chain_scheduler="auto", chain_batch_size=None, leapfrogs_per_round=None, device=None,
+                 dtype=torch.float32):
+        if chain_method not in _CHAIN_METHODS:
+            raise ValueError(f"chain_method must be one of {_CHAIN_METHODS}, got {chain_method!r}")
+        if chain_scheduler not in ("auto", "sync", "async"):
+            raise ValueError(f"chain_scheduler must be auto/sync/async, got {chain_scheduler!r}")
+        if jit_model_args:
+            raise ValueError(
+                "jit_model_args=True is not supported: model args are closed over "
+                "and the compiled program is cached per (model, data, shapes) -- "
+                "re-running with same-shaped data already reuses the executable"
+            )
+        if mesh is not None:
+            raise NotImplementedError("MCMC(mesh=...) shards the chains over devices; not ported yet (ROADMAP M11)")
         if max_steps_per_call is not None and (int(max_steps_per_call) != max_steps_per_call
                                                or max_steps_per_call < 1):
             raise ValueError(f"max_steps_per_call must be None or a positive integer, got {max_steps_per_call!r}")
-        if chain_method not in _CHAIN_METHODS:
-            raise ValueError(f"chain_method must be one of {_CHAIN_METHODS}, got {chain_method!r}")
         if chain_method == "sequential" and collective_adaptation:
             raise ValueError("collective_adaptation requires a batched chain axis (vectorized/parallel)")
+        self.chain_groups = int(chain_groups)
+        if self.chain_groups > 1 and int(num_chains) % self.chain_groups != 0:
+            raise ValueError(f"chain_groups={chain_groups} must divide num_chains={num_chains}")
+        if self.chain_groups > 1 and chain_method == "sequential":
+            raise ValueError("chain_groups tiles a batched chain axis; chain_method='sequential' has none")
         if chain_batch_size is not None:
             if chain_method != "vectorized":
-                raise ValueError("chain_batch_size needs chain_method='vectorized'")
+                raise ValueError("chain_batch_size needs chain_method='vectorized' without a mesh")
             if collective_adaptation:
                 raise ValueError("chain_batch_size pools nothing across batches; collective_adaptation "
                                  "needs all chains in one batch")
             if int(num_chains) % int(chain_batch_size) != 0:
                 raise ValueError(f"chain_batch_size={chain_batch_size} must divide num_chains={num_chains}")
-        self.max_steps_per_call = max_steps_per_call
+            if self.chain_groups > 1:
+                raise ValueError("chain_batch_size and chain_groups are alternative tilings; pick one")
+        if leapfrogs_per_round is not None and int(leapfrogs_per_round) < 1:
+            raise ValueError(f"leapfrogs_per_round must be >= 1, got {leapfrogs_per_round}")
         self.kernel = kernel
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
@@ -101,10 +182,17 @@ class MCMC:
         self.thinning = int(thinning)
         self.collective_adaptation = bool(collective_adaptation)
         self.chain_method = chain_method
+        self.progress_bar = bool(progress_bar)
+        self.chain_axis = chain_axis
+        self.max_steps_per_call = max_steps_per_call
+        self.chain_scheduler = chain_scheduler
         self.chain_batch_size = None if chain_batch_size is None else int(chain_batch_size)
+        self.leapfrogs_per_round = None if leapfrogs_per_round is None else int(leapfrogs_per_round)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.timings = {}
+        self.host_reads = 0
+        self.transition_steps = None
         self.post_warmup_state = None
         self._adapt_info = None
         self._potential = None
@@ -120,6 +208,9 @@ class MCMC:
         self.timings[key] = self.timings.get(key, 0.0) + now - t0
         return now
 
+    def _count_read(self):
+        self.host_reads += 1
+
     def _batch_size(self):
         if self.chain_method == "sequential":
             return 1
@@ -132,6 +223,48 @@ class MCMC:
             print(f"chain_method='parallel': {self.num_chains} chains on one device; running vectorized",
                   file=sys.stderr)
         return self.chain_batch_size or self.num_chains
+
+    def _resolve_scheduler(self, nc):
+        """True for the async (continuous-batching) scheduler, for a batch
+        of ``nc`` chains."""
+        if self.chain_scheduler == "sync":
+            return False
+        if self.chain_scheduler == "async":
+            if not hasattr(self.kernel, "make_tree_ops"):
+                raise ValueError("chain_scheduler='async' needs a kernel exposing make_tree_ops (NUTS)")
+            if self.chain_method == "sequential":
+                raise ValueError(
+                    "chain_scheduler='async' needs a batched chain axis "
+                    "(chain_method='vectorized' or 'parallel')"
+                )
+            return True
+        return (
+            hasattr(self.kernel, "make_tree_ops")
+            and not self.collective_adaptation
+            and self.chain_method == "vectorized"
+            and nc > 1
+        )
+
+    def _resolve_leapfrogs_per_round(self, use_async):
+        """Masked leapfrogs per async round: the explicit value, else 1.
+        Under sync only 1 (or None) is accepted; with ``"auto"`` that is
+        known only once ``run`` resolves the scheduler."""
+        if not use_async:
+            if self.leapfrogs_per_round not in (None, 1):
+                raise ValueError(
+                    "leapfrogs_per_round only applies to the continuous-batching "
+                    "(async) chain scheduler"
+                )
+            return 1
+        return self.leapfrogs_per_round or 1
+
+    def _segment_length(self, T):
+        seg = T
+        if self.max_steps_per_call:
+            seg = min(seg, int(self.max_steps_per_call))
+        if self.progress_bar:
+            seg = min(seg, max(1, T // 10))
+        return max(seg, 1)
 
     def _resume_inputs(self, saved, dim, generator):
         """Positions ``(C, dim)``, inverse mass matrices and step sizes
@@ -162,12 +295,15 @@ class MCMC:
         k = self.kernel
         nc, dev, dtype = self.num_chains, self.device, self.dtype
         self.timings = {}
+        self.host_reads = 0
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(int(rng_seed))
         potential = ModelPotential(k.model, model_args, model_kwargs, device=dev, dtype=dtype)
         self._potential = potential
         dim = potential.dim
         batch = self._batch_size()
+        use_async = self._resolve_scheduler(batch)
+        leapfrogs = self._resolve_leapfrogs_per_round(use_async)
 
         resume = post_warmup_state is not None
         if resume:
@@ -184,12 +320,16 @@ class MCMC:
         num_warmup = 0 if resume else self.num_warmup
         find_ss0 = k.adapt_step_size and not resume
         outs = [self._run_batch(potential, z0[c : c + batch], inv0[c : c + batch], ss0[c : c + batch], gen,
-                                num_warmup, find_ss0)
+                                num_warmup, find_ss0, use_async, leapfrogs)
                 for c in range(0, nc, batch)]
         state = type(outs[0][0])(*(torch.cat(f) for f in zip(*(o[0] for o in outs))))
         inverse, mass_chol, step_size = (torch.cat([o[i] for o in outs]) for i in (1, 2, 3))
-        self._collected_z = torch.cat([o[4] for o in outs], dim=1)
-        self._extra = {f: torch.cat([o[5][f] for o in outs], dim=1) for f in _EXTRA_FIELDS}
+        collected = {f: torch.cat([o[4][f] for o in outs], dim=1) for f in _STATE_OF_FIELD}
+        self.transition_steps = collected["num_steps"]
+        # strip warmup, then thin
+        collected = {f: v[num_warmup:][self.thinning - 1 :: self.thinning] for f, v in collected.items()}
+        self._collected_z = collected.pop("z")
+        self._extra = collected
         self._adapt_info = {"step_size": step_size, "inverse_mass_matrix": inverse}
         self.post_warmup_state = {
             "state": tuple(state),
@@ -200,15 +340,14 @@ class MCMC:
         }
         return self
 
-    def _run_batch(self, potential, z0, inv0, ss0, gen, num_warmup, find_ss0):
+    def _run_batch(self, potential, z0, inv0, ss0, gen, num_warmup, find_ss0, use_async, leapfrogs):
         """One whole run (warmup, if any, then sampling) of the chains
-        ``z0``.  Returns ``(last state, inverse mass matrix, its mass
-        Cholesky factor, final step size, positions (S, C, dim), extra
-        fields {name: (S, C)})``."""
+        ``z0``, segment by segment.  Returns ``(last state, inverse mass
+        matrix, its mass Cholesky factor, final step size, {"z": (T, C, dim),
+        extra field: (T, C)})`` over all ``T`` transitions."""
         k = self.kernel
         nc, dim, dev, dtype = z0.shape[0], z0.shape[1], self.device, self.dtype
         t0 = time.perf_counter()
-        transition = k.make_transition(potential)
         state = k.make_init(potential)(z0)
         mm = mass_matrix_from_inverse(inv0)
         if find_ss0:
@@ -216,52 +355,211 @@ class MCMC:
                                                   pe_grad=(state.pe, state.grad))
         else:
             step_size = ss0
-        da = da_init(step_size)
-        wf = welford_init(nc, dim, k.dense_mass, dtype, dev)
-        ss_final = step_size
-        t_phase = self._tick("init", t0)
+        carry = (state, da_init(step_size), welford_init(nc, dim, k.dense_mass, dtype, dev), mm, step_size)
+        clock = {"t": self._tick("init", t0)}
 
         W = num_warmup
+        T = W + self.num_samples * self.thinning
         window_end, in_slow = build_warmup_schedule(W, k.adapt_mass_matrix)
-        total = self.num_samples * self.thinning
-        zs, extra = [], {f: [] for f in _EXTRA_FIELDS}
-        for t in range(W + total):
-            warm = t < W
-            ss = torch.exp(da.log_step) if warm else ss_final
-            state = transition(state, mm, ss, gen)
-            if warm:
+        flags = np.zeros((4, T), dtype=bool)  # is_warmup, in_slow, window_end, finalize
+        flags[0, :W], flags[1, :W], flags[2, :W] = True, in_slow, window_end
+        if W > 0:
+            flags[3, W - 1] = True
+
+        if use_async:
+            run_segment = functools.partial(self._async_segment, k.make_tree_ops(potential), leapfrogs=leapfrogs)
+        else:
+            run_segment = functools.partial(self._sync_segment, k.make_transition(potential, on_read=self._count_read))
+
+        def warmup_done():
+            clock["t"] = self._tick("warmup", clock["t"])
+
+        seg = self._segment_length(T)
+        outs, t_start, ndiv = [], time.perf_counter(), 0
+        for s0 in range(0, T, seg):
+            n = min(seg, T - s0)
+            # the segment that holds the last warmup transition ticks its end
+            warm_end = W - s0 if 0 < W - s0 <= n else None
+            carry, out = run_segment(carry, flags[:, s0 : s0 + n], gen, warm_end, warmup_done)
+            outs.append(out)
+            if self.progress_bar and seg < T:
+                ndiv += int(out["diverging"].sum())
+                self._count_read()
+                done = s0 + n
+                rate = done / max(time.perf_counter() - t_start, 1e-9)
+                print(f"[mcmc] {'warmup' if done <= W else 'sample'} step {done}/{T}  ({rate:.2f} it/s, "
+                      f"{ndiv} divergences)", file=sys.stderr, flush=True)
+        self._tick("sample", clock["t"])
+
+        state, _, _, mm, ss_final = carry
+        if outs:
+            collected = {f: torch.cat([o[f] for o in outs]) for f in outs[0]}
+        else:
+            collected = {"z": torch.zeros(0, nc, dim, dtype=dtype, device=dev)}
+            collected.update({f: getattr(state, _STATE_OF_FIELD[f])[None][:0] for f in _EXTRA_FIELDS})
+        return state, mm.inverse, mm.mass_chol, ss_final, collected
+
+    # ------------------------------------------------------------ adaptation
+
+    def _close_window(self, wf, da):
+        """The end of a slow window: the mass matrix from the Welford
+        covariance (Chan-pooled over the chains under collective
+        adaptation), the step size's averaging restarted at its current
+        value, and fresh Welford states.  Returns ``(mm, da, wf)``."""
+        nc = wf.count.shape[0]
+        if self.collective_adaptation:
+            cov = welford_covariance(welford_pool(wf))  # one pooled chain
+            cov = cov.expand((nc,) + cov.shape[1:]).contiguous()
+        else:
+            cov = welford_covariance(wf)
+        return (mass_matrix_from_inverse(cov), da_init(torch.exp(da.log_step)),
+                welford_init(nc, wf.mean.shape[1], self.kernel.dense_mass, self.dtype, self.device))
+
+    def _groups(self, nc):
+        n = nc // self.chain_groups
+        return [slice(g * n, (g + 1) * n) for g in range(self.chain_groups)]
+
+    # ------------------------------------------------------------ sync
+
+    def _sync_segment(self, transition, carry, flags, gen, warm_end, warmup_done):
+        """Transitions of one segment in lockstep: step ``j`` runs every
+        chain's transition, then the adaptation of step ``j``;
+        ``warmup_done()`` is called after step ``warm_end - 1`` (None: no
+        warmup ends in the segment).  Returns the carry and the outputs
+        ``{field: (n, C, ...)}``."""
+        k = self.kernel
+        state, da, wf, mm, ss_final = carry
+        is_warmup, in_slow, window_end, finalize = flags
+        groups = self._groups(state.z.shape[0]) if self.chain_groups > 1 else None
+        out = {f: [] for f in _STATE_OF_FIELD}
+        for j in range(flags.shape[1]):
+            ss = torch.exp(da.log_step) if is_warmup[j] else ss_final
+            if groups is None:
+                state = transition(state, mm, ss, gen)
+            else:
+                state = _cat([transition(_rows(state, g), _rows(mm, g), ss[g], gen) for g in groups])
+            if is_warmup[j]:
                 if k.adapt_step_size:
                     accept = state.accept_prob
                     if self.collective_adaptation:
                         accept = accept.mean().expand_as(accept)
                     da = da_update(da, accept, target=k.target_accept_prob)
-                if k.adapt_mass_matrix and in_slow[t]:
+                if k.adapt_mass_matrix and in_slow[j]:
                     wf = welford_update(wf, state.z)
-                if k.adapt_mass_matrix and window_end[t]:
-                    if self.collective_adaptation:
-                        cov = welford_covariance(welford_pool(wf))  # one pooled chain
-                        cov = cov.expand((nc,) + cov.shape[1:]).contiguous()
-                    else:
-                        cov = welford_covariance(wf)
-                    mm = mass_matrix_from_inverse(cov)
-                    da = da_init(torch.exp(da.log_step))  # keep the step size, restart its averaging
-                    wf = welford_init(nc, dim, k.dense_mass, dtype, dev)
-                if t == W - 1:
-                    ss_final = torch.exp(da.log_step_avg) if k.adapt_step_size else ss
-                    t_phase = self._tick("warmup", t_phase)
-            elif (t - W + 1) % self.thinning == 0:
-                zs.append(state.z)
-                extra["accept_prob"].append(state.accept_prob)
-                extra["diverging"].append(state.diverging)
-                extra["num_steps"].append(state.num_steps)
-                extra["energy"].append(state.energy)
-                extra["potential_energy"].append(state.pe)
-                extra["tree_depth"].append(state.tree_depth)
-        self._tick("sample", t_phase)
+                if k.adapt_mass_matrix and window_end[j]:
+                    mm, da, wf = self._close_window(wf, da)
+            if finalize[j]:
+                ss_final = torch.exp(da.log_step_avg) if k.adapt_step_size else ss
+            for f, name in _STATE_OF_FIELD.items():
+                out[f].append(getattr(state, name))
+            if warm_end is not None and j == warm_end - 1:
+                warmup_done()
+        return (state, da, wf, mm, ss_final), {f: torch.stack(v) for f, v in out.items()}
 
-        collected = torch.stack(zs) if zs else torch.zeros(0, nc, dim, dtype=dtype, device=dev)
-        extra = {f: torch.stack(v) if v else torch.zeros(0, nc, device=dev) for f, v in extra.items()}
-        return state, mm.inverse, mm.mass_chol, ss_final, collected, extra
+    # ------------------------------------------------------------ async
+
+    def _async_segment(self, ops, carry, flags, gen, warm_end, warmup_done, leapfrogs=1):
+        """Transitions of one segment by continuous batching (the
+        counterpart of the JAX engine's ``async_scan_fn``): every chain
+        runs its ``K`` transitions back to back on its own lane, each
+        adaptation update fires at the chain's own step index in the sync
+        engine's order, and the outputs land in per-chain buffers with a
+        spill row ``K`` for lanes that did not finish; ``warmup_done()`` is
+        called once every chain has finished its step ``warm_end - 1``.
+        Returns the carry and the outputs ``{field: (K, C, ...)}``."""
+        k = self.kernel
+        start, active, step, finish = ops
+        state, da, wf, mm, ss_final = carry
+        nc, dim = state.z.shape
+        dev, dtype = state.z.device, state.z.dtype
+        K = flags.shape[1]
+        is_warmup, in_slow, window_end, finalize = torch.as_tensor(flags, device=dev)
+        groups = self._groups(nc) if self.chain_groups > 1 else None
+        collective = self.collective_adaptation and k.adapt_mass_matrix
+        lanes = torch.arange(nc, device=dev)
+
+        # transition t's draws for every chain, made the first time a chain
+        # reaches t (so in increasing t, the sync engine's order) and freed
+        # once every chain has started t
+        blocks = {}
+
+        def draws_for(t_lane, t_lo, t_hi):
+            """Row c of transition ``t_lane[c]``'s draws, for ``t_lo <=
+            t_lane <= t_hi``."""
+            for b in range(len(blocks) and max(blocks) + 1, t_hi + 1):
+                blocks[b] = tree_draws(nc, dim, k.max_tree_depth, dtype, dev, gen)
+            for b in [b for b in blocks if b < t_lo]:
+                del blocks[b]
+            if t_lo == t_hi:
+                return blocks[t_lo]
+            stacked = (torch.stack(fs) for fs in zip(*(blocks[b] for b in range(t_lo, t_hi + 1))))
+            return TreeDraws(*(f[t_lane - t_lo, lanes] for f in stacked))
+
+        ss0 = torch.exp(da.log_step) if flags[0, 0] else ss_final
+        tc = start(state, mm, ss0, draws_for(None, 0, 0))
+        t = torch.zeros(nc, dtype=torch.int64, device=dev)
+        started = torch.ones(nc, dtype=torch.bool, device=dev)
+        bufs = {f: torch.zeros((nc, K + 1) + tuple(getattr(state, name).shape[1:]),
+                               dtype=getattr(state, name).dtype, device=dev)
+                for f, name in _STATE_OF_FIELD.items()}
+        # the segment's window-end steps, for the collective barrier
+        w_ends = [j for j in range(K) if flags[2, j]] + [K]
+        w_ptr = 0
+
+        while True:
+            running = started & (t < K)
+            for _ in range(leapfrogs):
+                live = running & active(tc)
+                if groups is None:
+                    stepped = step(mm, tc)
+                else:
+                    stepped = _cat([step(_rows(mm, g), _rows(tc, g)) for g in groups])
+                tc = select_lanes(live, stepped, tc)
+            done = running & ~active(tc)
+            ti = t.clamp_max(K - 1)
+            close = done & window_end[ti]
+            t_next = t + done.long()
+            any_done, any_close, t_min, t_max = torch.stack(
+                [done.any().long(), close.any().long(), t_next.min(), t_next.max()]).tolist()
+            self._count_read()
+            if any_done:
+                state = select_lanes(done, finish(tc), state)
+                if k.adapt_step_size:
+                    da_new = da_update(da, state.accept_prob, target=k.target_accept_prob)
+                    da = select_lanes(done & is_warmup[ti], da_new, da)
+                if k.adapt_mass_matrix:
+                    wf = select_lanes(done & is_warmup[ti] & in_slow[ti], welford_update(wf, state.z), wf)
+                    if any_close and not self.collective_adaptation:
+                        mm_c, da_c, wf_c = self._close_window(wf, da)
+                        mm, da, wf = (select_lanes(close, mm_c, mm), select_lanes(close, da_c, da),
+                                      select_lanes(close, wf_c, wf))
+                ss_now = torch.exp(da.log_step_avg) if k.adapt_step_size else tc.step_size
+                ss_final = torch.where(done & finalize[ti], ss_now, ss_final)
+                widx = torch.where(done, t, K)
+                for f, name in _STATE_OF_FIELD.items():
+                    bufs[f][lanes, widx] = getattr(state, name)
+                t = t_next
+                started = started & ~done
+                eligible = ~started & (t < K)
+                if collective:
+                    # the window barrier: once every chain has finished the
+                    # pending window-end step, one pooled close; until then a
+                    # chain does not start past it
+                    if w_ends[w_ptr] < K and t_min > w_ends[w_ptr]:
+                        mm, da, wf = self._close_window(wf, da)
+                        w_ptr += 1
+                    eligible = eligible & (t <= w_ends[w_ptr])
+                ti = t.clamp_max(K - 1)
+                lo, hi = min(t_min, K - 1), min(t_max, K - 1)
+                ss_next = torch.where(is_warmup[ti], torch.exp(da.log_step), ss_final)
+                tc = select_lanes(eligible, start(state, mm, ss_next, draws_for(ti, lo, hi)), tc)
+                started = started | eligible
+                if warm_end is not None and t_min >= warm_end:
+                    warmup_done()
+                    warm_end = None
+            if t_min >= K:
+                break
+        return (state, da, wf, mm, ss_final), {f: v[:, :K].transpose(0, 1) for f, v in bufs.items()}
 
     def get_samples(self, group_by_chain=False):
         """Constrained samples ``{site: (num_samples * num_chains, *shape)}``

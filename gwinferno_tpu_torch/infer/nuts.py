@@ -6,12 +6,18 @@ transition is a single loop over leapfrog steps.  Its schedule (doubling
 checkpoint slot ranges; which leaf completes a subtree) is a static function
 of the flat index, precomputed into tables, and all of a transition's
 randomness is drawn when it starts.  The transition is a state machine over
-:class:`TreeCarry`: :func:`tree_start`, then :func:`tree_step` while
+:class:`TreeCarry`: :func:`tree_start` (:func:`tree_draws`, then the
+deterministic :func:`tree_start_from`), then :func:`tree_step` while
 :func:`tree_active`, then :func:`tree_finish`.
 
-Every field carries a leading chain axis ``C``.  :func:`nuts_transition`
-steps only the chains whose trees are still growing, so a gradient is spent
-on an active chain only.
+Every field carries a leading chain axis ``C``, and every operation is per
+chain.  :func:`nuts_transition` steps all ``C`` lanes on every leapfrog and
+keeps a lane whose tree has stopped unchanged (:func:`select_lanes`), as the
+JAX engine's ``vmap`` of a ``while_loop`` does, so every potential call sees
+the same ``(C, dim)`` batch; it reads one flag back to the host per
+leapfrog.  The continuous-batching scheduler of
+:class:`~gwinferno_tpu_torch.infer.MCMC` drives the same state machine
+through :meth:`NUTS.make_tree_ops`.
 
 Proposals: multinomial sampling within subtrees, biased progressive sampling
 across doublings (as in Stan).  Termination: the generalized U-turn
@@ -30,12 +36,12 @@ import torch
 from .hmc_util import MassMatrix
 from .hmc_util import kinetic_energy
 from .hmc_util import leapfrog
-from .hmc_util import sample_momentum
+from .hmc_util import momentum_from_normal
 from .hmc_util import value_and_grad
 from .hmc_util import velocity
 
-__all__ = ["NUTS", "NUTSState", "TreeCarry", "nuts_init", "nuts_transition",
-           "tree_start", "tree_active", "tree_step", "tree_finish"]
+__all__ = ["NUTS", "NUTSState", "TreeCarry", "TreeDraws", "nuts_init", "nuts_transition", "select_lanes",
+           "tree_draws", "tree_start_from", "tree_start", "tree_active", "tree_step", "tree_finish"]
 
 
 class NUTSState(NamedTuple):
@@ -108,6 +114,14 @@ def _const_i_table(max_depth, device):
     return torch.as_tensor(np.stack([idx_min, idx_max, even, complete], axis=1), device=device)
 
 
+def select_lanes(mask, new, old):
+    """Per lane, ``new`` where ``mask`` ``(C,)`` holds and ``old`` elsewhere,
+    for two NamedTuples of the same type whose fields all carry a leading
+    chain axis."""
+    return type(old)(*(torch.where(mask.reshape(mask.shape + (1,) * (o.ndim - 1)), n, o)
+                       for n, o in zip(new, old)))
+
+
 class TreeCarry(NamedTuple):
     """State of the in-flight transitions, one per chain."""
 
@@ -121,35 +135,46 @@ class TreeCarry(NamedTuple):
     h0: torch.Tensor  # (C,) initial Hamiltonian
     step_size: torch.Tensor  # (C,)
 
-    def select(self, idx):
-        return TreeCarry(*(x[idx] for x in self))
 
-    def update(self, idx, sub):
-        """This carry with the chains ``idx`` replaced by ``sub``."""
-        return TreeCarry(*(x.index_copy(0, idx, s) for x, s in zip(self, sub)))
+class TreeDraws(NamedTuple):
+    """One transition's randomness for ``C`` chains, as drawn."""
+
+    eps: torch.Tensor  # (C, dim) unit normals; the momentum is mass_chol @ eps
+    u_dirs: torch.Tensor  # (C, md + 1) per-doubling direction uniforms (one spare)
+    u_mult: torch.Tensor  # (C, total) per-leaf multinomial uniforms
+    u_merge: torch.Tensor  # (C, md) per-doubling biased-accept uniforms
 
 
-def tree_start(state: NUTSState, mm: MassMatrix, step_size, generator, max_tree_depth) -> TreeCarry:
-    """Draw momenta and the transition's randomness, and pack the initial
-    tree state."""
-    z = state.z
-    C, dtype, dev = z.shape[0], z.dtype, z.device
+def tree_draws(num_chains, dim, max_tree_depth, dtype, device, generator) -> TreeDraws:
+    """Draw a transition's randomness for ``num_chains`` chains from
+    ``generator``: ``randn(C, dim)``, then ``rand(C, md + 1)``, ``rand(C,
+    total)`` and ``rand(C, md)``, in that order."""
     md = int(max_tree_depth)
     total = (1 << md) - 1
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    eps = torch.randn((num_chains, dim), **kw)
+    return TreeDraws(eps, torch.rand((num_chains, md + 1), **kw), torch.rand((num_chains, total), **kw),
+                     torch.rand((num_chains, md), **kw))
+
+
+def tree_start_from(state: NUTSState, mm: MassMatrix, step_size, draws: TreeDraws) -> TreeCarry:
+    """Pack the initial tree state of every chain from its draws: the
+    momentum ``mass_chol @ eps`` and the transition's randomness spread onto
+    the flat iteration axis.  Deterministic."""
+    z = state.z
+    C, dtype, dev = z.shape[0], z.dtype, z.device
+    md = draws.u_merge.shape[1]
     depth_tab = torch.as_tensor(_schedule_tables(md)[0], device=dev)
 
-    r0 = sample_momentum(mm, generator, z)
+    r0 = momentum_from_normal(mm, draws.eps)
     h0 = state.pe + kinetic_energy(mm, r0)
-
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, dtype=dtype, device=dev)
 
     # per-doubling directions (one spare slot for the next-subtree lookup at
     # the last merge), per-leaf multinomial uniforms, per-doubling
     # biased-accept uniforms, spread onto the flat iteration axis
-    dirs = torch.where(rand(C, md + 1) < 0.5, 1.0, -1.0).to(dtype)
-    log_u_mult = torch.log(rand(C, total))
-    log_u_merge = torch.log(rand(C, md))
+    dirs = torch.where(draws.u_dirs < 0.5, 1.0, -1.0).to(dtype)
+    log_u_mult = torch.log(draws.u_mult)
+    log_u_merge = torch.log(draws.u_merge)
     const_f = torch.stack([dirs[:, depth_tab], log_u_mult, log_u_merge[:, depth_tab], dirs[:, depth_tab + 1]], dim=2)
 
     g = state.grad
@@ -170,6 +195,14 @@ def tree_start(state: NUTSState, mm: MassMatrix, step_size, generator, max_tree_
     )
 
 
+def tree_start(state: NUTSState, mm: MassMatrix, step_size, generator, max_tree_depth) -> TreeCarry:
+    """Draw momenta and the transition's randomness (:func:`tree_draws`),
+    and pack the initial tree state (:func:`tree_start_from`)."""
+    z = state.z
+    draws = tree_draws(z.shape[0], z.shape[1], max_tree_depth, z.dtype, z.device, generator)
+    return tree_start_from(state, mm, step_size, draws)
+
+
 def tree_active(carry: TreeCarry, max_tree_depth):
     total = (1 << int(max_tree_depth)) - 1
     return (carry.i < total) & ~carry.turning & ~carry.diverging
@@ -177,14 +210,17 @@ def tree_active(carry: TreeCarry, max_tree_depth):
 
 def tree_step(potential_fn, mm: MassMatrix, carry: TreeCarry, max_tree_depth, max_delta_energy=1000.0) -> TreeCarry:
     """One flat tree iteration for every chain of ``carry``: one leapfrog
-    and the tree bookkeeping."""
+    and the tree bookkeeping.  A lane whose tree has stopped is stepped as
+    well (its index held inside the tables); the caller discards its
+    result."""
     md = int(max_tree_depth)
     vecs, scal, ckpts = carry.vecs, carry.scal, carry.ckpts
     i = carry.i
     C = i.shape[0]
     rows = torch.arange(C, device=i.device)
-    f = carry.const_f[rows, i]
-    c = _const_i_table(md, i.device)[i]
+    ii = i.clamp_max((1 << md) - 2)
+    f = carry.const_f[rows, ii]
+    c = _const_i_table(md, i.device)[ii]
     direction, log_u, log_u_m, next_dir = f.unbind(1)
     idx_min, idx_max = c[:, 0], c[:, 1]
     is_even = c[:, 2] == 1
@@ -309,23 +345,20 @@ def tree_finish(carry: TreeCarry, max_tree_depth) -> NUTSState:
 
 
 def nuts_transition(potential_fn, state: NUTSState, mm: MassMatrix, step_size, generator,
-                    max_tree_depth=10, max_delta_energy=1000.0):
-    """One NUTS transition for every chain.  Each leapfrog round steps only
-    the chains whose trees are still growing."""
+                    max_tree_depth=10, max_delta_energy=1000.0, on_read=None):
+    """One NUTS transition for every chain.  Each leapfrog round steps all
+    lanes and keeps the stopped ones unchanged; the round's stop test is one
+    read to the host (``on_read()`` is called for each)."""
     md = int(max_tree_depth)
     carry = tree_start(state, mm, step_size, generator, md)
+    active = tree_active(carry, md)  # a fresh tree always takes its first leapfrog
     while True:
+        carry = select_lanes(active, tree_step(potential_fn, mm, carry, md, max_delta_energy), carry)
         active = tree_active(carry, md)
-        idx = active.nonzero().squeeze(1)
-        n = idx.numel()
-        if n == 0:
-            break
-        if n == active.shape[0]:
-            carry = tree_step(potential_fn, mm, carry, md, max_delta_energy)
-        else:
-            sub = tree_step(potential_fn, mm.select(idx), carry.select(idx), md, max_delta_energy)
-            carry = carry.update(idx, sub)
-    return tree_finish(carry, md)
+        if on_read is not None:
+            on_read()
+        if not bool(active.any()):
+            return tree_finish(carry, md)
 
 
 def nuts_init(potential_fn, z):
@@ -344,7 +377,8 @@ def nuts_init(potential_fn, z):
 
 
 class NUTS:
-    """NUTS kernel configuration, consumed by :class:`~gwinferno_tpu_torch.infer.MCMC`."""
+    """NUTS kernel configuration, consumed by :class:`~gwinferno_tpu_torch.infer.MCMC`.
+    ``init_strategy`` is accepted and unused, as in the JAX package."""
 
     def __init__(
         self,
@@ -356,6 +390,7 @@ class NUTS:
         target_accept_prob=0.8,
         max_tree_depth=10,
         max_delta_energy=1000.0,
+        init_strategy=None,
     ):
         self.model = model
         self.step_size = step_size
@@ -365,13 +400,34 @@ class NUTS:
         self.target_accept_prob = target_accept_prob
         self.max_tree_depth = max_tree_depth
         self.max_delta_energy = max_delta_energy
+        self.init_strategy = init_strategy
 
-    def make_transition(self, potential_fn):
+    def make_transition(self, potential_fn, on_read=None):
         def transition(state, mm, step_size, generator):
             return nuts_transition(potential_fn, state, mm, step_size, generator,
-                                   self.max_tree_depth, self.max_delta_energy)
+                                   self.max_tree_depth, self.max_delta_energy, on_read=on_read)
 
         return transition
+
+    def make_tree_ops(self, potential_fn):
+        """``(start, active, step, finish)`` over the transition's state
+        machine, for a scheduler that interleaves many chains' transitions:
+        ``start(state, mm, step_size, draws)`` (draws from
+        :func:`tree_draws` at this kernel's ``max_tree_depth``),
+        ``active(carry)``, ``step(mm, carry)`` (one leapfrog on every lane)
+        and ``finish(carry)``."""
+        md = self.max_tree_depth
+
+        def active(carry):
+            return tree_active(carry, md)
+
+        def step(mm, carry):
+            return tree_step(potential_fn, mm, carry, md, self.max_delta_energy)
+
+        def finish(carry):
+            return tree_finish(carry, md)
+
+        return tree_start_from, active, step, finish
 
     def make_init(self, potential_fn):
         return lambda z: nuts_init(potential_fn, z)

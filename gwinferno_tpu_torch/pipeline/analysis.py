@@ -3,9 +3,13 @@ the config-driven hierarchical model.
 
 Counterpart of ``gwinferno_tpu/pipeline/analysis.py`` on the log path (the
 weights are log-weights throughout, so float32 never squares a linear
-weight).  Every function takes a leading batch (chain) axis: PE log-weights
-``(..., N_events, N_samples)``, injection log-weights ``(..., N_found)``.
-Both reductions go through K1 (:func:`gwinferno_tpu_torch.ops.fused.double_logsumexp`).
+weight).  The functions keep the JAX package's signatures and defaults,
+``log=False`` included: the linear-weight path is not ported (ROADMAP queue
+1, the M2-M4 remainder) and raises, so a call written for the JAX package
+either gives its answer or raises, and callers pass ``log=True``.  Every
+function takes a leading batch (chain) axis: PE log-weights ``(...,
+N_events, N_samples)``, injection log-weights ``(..., N_found)``.  Both
+reductions go through K1 (:func:`gwinferno_tpu_torch.ops.fused.double_logsumexp`).
 """
 
 from __future__ import annotations
@@ -41,30 +45,42 @@ __all__ = [
 
 NP_KERNEL_MAP = {"NUTS": NUTS, "HMC": HMC}
 
+_NOT_PORTED = "not ported yet (ROADMAP queue 1, the M2-M4 remainder)"
 
-def per_event_log_bayes_factors(log_weights):
-    """Per-event log Bayes factors by importance sampling over the PE banks.
+
+def _log_path_only(log):
+    if not log:
+        raise NotImplementedError(f"the linear-weight path (log=False, the default) is {_NOT_PORTED}; "
+                                  "pass log-weights with log=True")
+
+
+def per_event_log_bayes_factors(weights, log=False):
+    """Per-event log Bayes factors by importance sampling over the PE banks
+    of log-weights ``weights`` (``log=True``; the linear path raises).
 
     Returns ``(logBFs, log_n_effs, variances)``, each ``(..., N_events)``.
     """
-    n_samples = log_weights.shape[-1]
-    lse1, lse2 = double_logsumexp(log_weights)
+    _log_path_only(log)
+    n_samples = weights.shape[-1]
+    lse1, lse2 = double_logsumexp(weights)
     logn_effs = 2.0 * lse1 - lse2
     logBFs = lse1 - math.log(n_samples)
     variances = torch.exp(-logn_effs) - 1.0 / n_samples
     return logBFs, logn_effs, variances
 
 
-def detection_efficiency(log_weights, Ninj):
+def detection_efficiency(weights, Ninj, log=False):
     """Detection efficiency mu by importance sampling over the found
-    injections (``Ninj`` generated), with its MC effective sample size.
+    injections (``Ninj`` generated) with log-weights ``weights`` (``log=True``;
+    the linear path raises), with its MC effective sample size.
 
     The estimator's variance ``sum(w^2)/Ninj^2 - mu^2/Ninj`` is evaluated in
     shifted log space.  Returns ``(log_mu, log_n_eff, variance)``, each of the
     batch shape.
     """
+    _log_path_only(log)
     log_ninj = math.log(Ninj)
-    lse1, lse2 = double_logsumexp(log_weights)
+    lse1, lse2 = double_logsumexp(weights)
     logmu = lse1 - log_ninj
     # var = e^A - e^B with A = log(sum w^2 / Ninj^2), B = log(mu^2 / Ninj);
     # B - A = log(n_eff_raw / Ninj) < 0 since n_eff_raw <= N_found < Ninj
@@ -83,11 +99,15 @@ def hierarchical_likelihood(
     Nobs,
     Tobs,
     surveyed_hypervolume=None,
+    categorical=False,
+    marginal_qs=False,
+    indv_weights=None,
+    rngkey=None,
+    pop_frac=None,
     reconstruct_rate=True,
     marginalize_selection=False,
     min_neff_cut=True,
     max_variance_cut=False,
-    categorical=False,
     posterior_predictive_check=False,
     param_names=None,
     pedata=None,
@@ -95,7 +115,7 @@ def hierarchical_likelihood(
     m2min=3.0,
     m1min=5.0,
     mmax=100.0,
-    log=True,
+    log=False,
     pe_summaries=None,
     inj_summaries=None,
 ):
@@ -104,14 +124,18 @@ def hierarchical_likelihood(
     diagnostic sites, added to the model as the ``log_likelihood`` factor.
 
     ``pe_weights`` ``(C, N_events, N_samples)`` and ``inj_weights``
-    ``(C, N_found)`` are log-weights.  Returns the reconstructed ``rate``
-    ``(C,)`` or None.
+    ``(C, N_found)`` are log-weights, passed with ``log=True``.  Returns the
+    reconstructed ``rate`` ``(C,)`` or None.
 
     Summaries seam: ``pe_summaries=(logBFs, log_n_effs, n_samples)`` and
     ``inj_summaries=(log_mu, log_n_eff_inj)`` take reductions computed
     upstream (the streamed op, ``ops/streamed.py``, or K3 through
     ``FusedBSplineLikelihood``) in place of the weight banks, which may then
-    be None.  Categorical subpopulations are not ported; they raise.
+    be None.  The linear path (``log=False``, the JAX package's default, with
+    weight banks), categorical subpopulations (``categorical``,
+    ``pop_frac``, ``rngkey``) and the posterior-predictive options
+    ``marginal_qs`` and ``indv_weights`` are not ported: each raises
+    ``NotImplementedError`` when asked for.
 
     ``posterior_predictive_check`` with ``param_names``, ``pedata`` and
     ``injdata`` adds the sites ``{p}_obs_event_{i}`` and
@@ -120,9 +144,7 @@ def hierarchical_likelihood(
     (:class:`~gwinferno_tpu_torch.ppl.handlers.collect_deterministic`, as
     ``MCMC.get_deterministic`` runs the model): the density does not depend
     on them, so a potential's gradient never draws them, as the JAX
-    package's compiled gradient drops them.  The port has the log path only,
-    so ``log`` defaults to True; ``log=False`` (linear weight banks, the JAX
-    package's default) raises.
+    package's compiled gradient drops them.
     """
     if max_variance_cut and (marginalize_selection or min_neff_cut):
         raise ValueError(
@@ -135,21 +157,24 @@ def hierarchical_likelihood(
         raise ValueError("pe_summaries (the fused seam) cannot be combined with categorical subpopulations")
     if (pe_summaries is not None or inj_summaries is not None) and posterior_predictive_check:
         raise ValueError("posterior_predictive_check needs the raw weight banks; disable it on the fused path")
-    if categorical:
-        raise NotImplementedError("categorical subpopulations are not ported")
-    if not log and (pe_summaries is None or inj_summaries is None):
-        raise NotImplementedError("the linear-weight path (log=False) is not ported; pass log-weights with log=True")
+    given = {"categorical": categorical, "marginal_qs": marginal_qs, "indv_weights": indv_weights is not None,
+             "rngkey": rngkey is not None, "pop_frac": pop_frac is not None}
+    for name, on in given.items():
+        if on:
+            raise NotImplementedError(f"{name} is {_NOT_PORTED}")
+    if pe_summaries is None or inj_summaries is None:
+        _log_path_only(log)
 
     if pe_summaries is not None:
         logBFs, logn_effs, n_samples = pe_summaries
         variances = torch.exp(-logn_effs) - 1.0 / n_samples
     else:
-        logBFs, logn_effs, variances = per_event_log_bayes_factors(pe_weights)
+        logBFs, logn_effs, variances = per_event_log_bayes_factors(pe_weights, log=log)
     if inj_summaries is not None:
         log_det_eff, logn_eff_inj = inj_summaries
         variance = torch.exp(-logn_eff_inj) - 1.0 / total_inj
     else:
-        log_det_eff, logn_eff_inj, variance = detection_efficiency(inj_weights, total_inj)
+        log_det_eff, logn_eff_inj, variance = detection_efficiency(inj_weights, total_inj, log=log)
     floor = torch.finfo(logBFs.dtype).min  # jnp.nan_to_num(-inf)
     ppl.deterministic("log_nEff_inj", logn_eff_inj)
     ppl.deterministic("log_nEffs", logn_effs)

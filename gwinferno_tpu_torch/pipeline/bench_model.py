@@ -195,6 +195,7 @@ class BenchModel(torch.nn.Module):
             surveyed_hypervolume=torch.exp(z_lognorm),
             marginalize_selection=False,
             min_neff_cut=True,
+            log=True,
             pe_summaries=pe_sum,
             inj_summaries=inj_sum,
         )

@@ -112,6 +112,7 @@ class BSplineModel(torch.nn.Module):
                 self.Nobs,
                 self.Tobs,
                 surveyed_hypervolume=self.z_model.normalization(lamb, z_cs),
+                log=True,
                 pe_summaries=(logBFs, log_n_effs, self.fused_lik.n_samples),
                 inj_summaries=(log_mu, log_n_eff_inj),
             )

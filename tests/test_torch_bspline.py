@@ -359,7 +359,7 @@ def test_hierarchical_likelihood_takes_the_bspline_kwargs():
     kw = dict(total_inj=1e5, Nobs=4, Tobs=1.0, surveyed_hypervolume=torch.ones(2))
     rates = {"unscaled_rate": torch.tensor([4.0, 5.0])}
     with ppl.trace() as plain, ppl.substitute(data=rates):
-        analysis.hierarchical_likelihood(pe, inj, **kw)
+        analysis.hierarchical_likelihood(pe, inj, log=True, **kw)
     with ppl.trace() as extra, ppl.substitute(data=rates):
         analysis.hierarchical_likelihood(pe, inj, param_names=["mass_1"], pedata={}, injdata={}, m1min=3.0, m2min=3.0,
                                          mmax=100.0, log=True, **kw)

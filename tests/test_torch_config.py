@@ -250,7 +250,8 @@ def test_python_file_model_loads_and_runs(tmp_path):
         "    lamb = ppl.sample('lamb', dist.Normal(0.0, 3.0))\n"
         "    m, z = Powerlaw(alpha, minimum=2.0, maximum=100.0), PowerlawRedshift(lamb, maximum=2.3)\n"
         "    lw = [m.log_prob(d['mass_1']) + z.log_prob(d['redshift']) - torch.log(d['prior']) for d in (samps, injs)]\n"
-        "    hierarchical_likelihood(lw[0], lw[1], Ninj, Nobs, Tobs, surveyed_hypervolume=z.norm, min_neff_cut=False)\n"
+        "    hierarchical_likelihood(lw[0], lw[1], Ninj, Nobs, Tobs, surveyed_hypervolume=z.norm, min_neff_cut=False,\n"
+        "                            log=True)\n"
     )
     model = load_model_from_python_file(str(path))
     args = _catalog("config_val")[0]

@@ -76,6 +76,32 @@ def _jax_carry(carry, c):
     )
 
 
+def _step_to_the_end(carry, mm, jcarries, jmms, md):
+    """Masked tree steps of every lane (as ``nuts_transition`` takes them)
+    against the JAX state machine chain by chain, to the end; returns the
+    port's final carry."""
+    for _ in range((1 << md) - 1):
+        active = tnuts.tree_active(carry, md)
+        if not bool(active.any()):
+            break
+        carry = tnuts.select_lanes(active, tnuts.tree_step(tpot, mm, carry, md), carry)
+        for c in active.nonzero().squeeze(1).tolist():
+            jcarries[c] = jnuts.tree_step(jpot, jmms[c], jcarries[c], md)
+            for name in ("i", "turning", "diverging", "vecs", "scal", "ckpts"):
+                got, want = getattr(carry, name)[c].numpy(), np.asarray(getattr(jcarries[c], name))
+                np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-12, err_msg=f"{name} chain {c}")
+    fin = tnuts.tree_finish(carry, md)
+    for c in range(carry.i.shape[0]):
+        jf = jnuts.tree_finish(jcarries[c], md)
+        for name in fin._fields:
+            np.testing.assert_allclose(getattr(fin, name)[c].numpy(), np.asarray(getattr(jf, name)), rtol=RTOL, atol=1e-12, err_msg=name)
+    assert len(set(fin.num_steps.tolist())) > 1, "the chains should stop at different depths"
+    return carry
+
+
+STEP_SIZES = [0.05, 0.3, 0.9, 1.6, 3.0, 6.0]
+
+
 @pytest.mark.parametrize("dense", [False, True])
 def test_nuts_tree_steps_match_jax(dense):
     """From one tree_start (its momenta and pre-drawn uniforms handed to both
@@ -86,27 +112,61 @@ def test_nuts_tree_steps_match_jax(dense):
     mm, _ = mcmc_state_from_jax(np.ones(C), inv, device="cpu", dtype=torch.float64)
     z0 = torch.tensor(np.random.default_rng(3).normal(size=(C, 3)))
     state = tnuts.nuts_init(tpot, z0)
-    step_size = torch.tensor([0.05, 0.3, 0.9, 1.6, 3.0, 6.0], dtype=torch.float64)
-    carry = tnuts.tree_start(state, mm, step_size, torch.Generator().manual_seed(4), md)
+    carry = tnuts.tree_start(state, mm, torch.tensor(STEP_SIZES, dtype=torch.float64), torch.Generator().manual_seed(4), md)
     jcarries = [_jax_carry(carry, c) for c in range(C)]
     jmms = [jhu.mass_matrix_from_inverse(jnp.asarray(inv[c])) for c in range(C)]
-    for _ in range((1 << md) - 1):
-        active = tnuts.tree_active(carry, md)
-        if not bool(active.any()):
-            break
-        idx = active.nonzero().squeeze(1)
-        carry = carry.update(idx, tnuts.tree_step(tpot, mm.select(idx), carry.select(idx), md))
-        for c in idx.tolist():
-            jcarries[c] = jnuts.tree_step(jpot, jmms[c], jcarries[c], md)
-            for name in ("i", "turning", "diverging", "vecs", "scal", "ckpts"):
-                got, want = getattr(carry, name)[c].numpy(), np.asarray(getattr(jcarries[c], name))
-                np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-12, err_msg=f"{name} chain {c}")
-    fin = tnuts.tree_finish(carry, md)
+    _step_to_the_end(carry, mm, jcarries, jmms, md)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_nuts_start_from_jax_draws(dense):
+    """Each chain's draws made as the JAX ``tree_start`` makes them (its key
+    split: unit normals, then the direction, multinomial and merge
+    uniforms), handed to the port's ``tree_start_from``: the packed start
+    agrees with the JAX one, and so does every step to the end."""
+    C, md = 6, 6
+    total = (1 << md) - 1
+    inv = _inverse_masses(C, dense, seed=5)
+    mm, _ = mcmc_state_from_jax(np.ones(C), inv, device="cpu", dtype=torch.float64)
+    z0 = np.random.default_rng(6).normal(size=(C, 3))
+    state = tnuts.nuts_init(tpot, torch.tensor(z0))
+    jmms = [jhu.mass_matrix_from_inverse(jnp.asarray(inv[c])) for c in range(C)]
+    draws, jcarries = [], []
     for c in range(C):
-        jf = jnuts.tree_finish(jcarries[c], md)
-        for name in fin._fields:
-            np.testing.assert_allclose(getattr(fin, name)[c].numpy(), np.asarray(getattr(jf, name)), rtol=RTOL, atol=1e-12, err_msg=name)
-    assert len(set(fin.num_steps.tolist())) > 1, "the chains should stop at different depths"
+        key = jax.random.PRNGKey(20 + c)
+        k_mom, k_dirs, k_mult, k_merge = jax.random.split(key, 4)
+        f64 = jnp.float64
+        draws.append([np.asarray(jax.random.normal(k_mom, (3,), f64)), np.asarray(jax.random.uniform(k_dirs, (md + 1,), f64)),
+                      np.asarray(jax.random.uniform(k_mult, (total,), f64)), np.asarray(jax.random.uniform(k_merge, (md,), f64))])
+        jstate = jnuts.nuts_init(jpot, jnp.asarray(z0[c]))
+        jcarries.append(jnuts.tree_start(jstate, jmms[c], STEP_SIZES[c], key, md))
+    tdraws = tnuts.TreeDraws(*(torch.tensor(np.stack(f)) for f in zip(*draws)))
+    carry = tnuts.tree_start_from(state, mm, torch.tensor(STEP_SIZES, dtype=torch.float64), tdraws)
+    for c in range(C):
+        for name in ("vecs", "scal", "ckpts", "const_f", "h0", "step_size"):
+            got, want = getattr(carry, name)[c].numpy(), np.asarray(getattr(jcarries[c], name))
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-12, err_msg=f"{name} chain {c}")
+    _step_to_the_end(carry, mm, jcarries, jmms, md)
+
+
+def test_tree_start_is_its_draws_then_its_start():
+    """``tree_start`` is ``tree_draws`` then ``tree_start_from``, bit for
+    bit, and ``tree_draws`` takes ``randn(C, dim)``, ``rand(C, md + 1)``,
+    ``rand(C, total)`` and ``rand(C, md)`` from the generator in that
+    order."""
+    C, md = 5, 4
+    mm = thu.identity_mass_matrix(C, 3, dense=True, dtype=torch.float64)
+    state = tnuts.nuts_init(tpot, torch.tensor(np.random.default_rng(9).normal(size=(C, 3))))
+    ss = torch.full((C,), 0.4, dtype=torch.float64)
+    g1, g2, g3 = (torch.Generator().manual_seed(11) for _ in range(3))
+    a = tnuts.tree_start(state, mm, ss, g1, md)
+    d = tnuts.tree_draws(C, 3, md, torch.float64, "cpu", g2)
+    b = tnuts.tree_start_from(state, mm, ss, d)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    raw = [torch.randn((C, 3), generator=g3, dtype=torch.float64)] + [
+        torch.rand((C, n), generator=g3, dtype=torch.float64) for n in (md + 1, (1 << md) - 1, md)]
+    assert all(torch.equal(x, y) for x, y in zip(d, raw))
+    assert torch.equal(g1.get_state(), g3.get_state())
 
 
 @pytest.mark.parametrize("dense", [False, True])

@@ -45,15 +45,15 @@ def test_per_event_and_detection_efficiency():
     pe, inj = _weights()
     for c in range(pe.shape[0]):
         want = janalysis.per_event_log_bayes_factors(jnp.asarray(pe[c]), log=True)
-        got = analysis.per_event_log_bayes_factors(torch.tensor(pe[c]))
+        got = analysis.per_event_log_bayes_factors(torch.tensor(pe[c]), log=True)
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10, atol=1e-12)
         want = janalysis.detection_efficiency(jnp.asarray(inj[c]), 1e6, log=True)
-        got = analysis.detection_efficiency(torch.tensor(inj[c]), 1e6)
+        got = analysis.detection_efficiency(torch.tensor(inj[c]), 1e6, log=True)
         for g, w in zip(got, want):
             np.testing.assert_allclose(float(g), float(w), rtol=1e-10, atol=1e-12)
     # batched over chains == per chain
-    bf, ne, var = analysis.per_event_log_bayes_factors(torch.tensor(pe))
+    bf, ne, var = analysis.per_event_log_bayes_factors(torch.tensor(pe), log=True)
     assert bf.shape == ne.shape == var.shape == pe.shape[:2]
 
 
@@ -74,7 +74,7 @@ def test_hierarchical_likelihood_sites(flags):
 
     got_rate = None
     with ppl.trace() as tr, ppl.substitute(data={"unscaled_rate": torch.tensor(rates)}):
-        got_rate = analysis.hierarchical_likelihood(torch.tensor(pe), torch.tensor(inj), surveyed_hypervolume=torch.tensor(hv), **kw)
+        got_rate = analysis.hierarchical_likelihood(torch.tensor(pe), torch.tensor(inj), surveyed_hypervolume=torch.tensor(hv), log=True, **kw)
     for c in range(C):
         with jppl.trace() as jtr, jppl.substitute(data={"unscaled_rate": jnp.asarray(rates[c])}):
             want_rate = janalysis.hierarchical_likelihood(
@@ -101,7 +101,7 @@ def test_max_variance_cut_excludes_the_other_cuts():
         with ppl.trace():
             analysis.hierarchical_likelihood(
                 torch.tensor(pe), torch.tensor(inj), 1e6, 4, 1.0, surveyed_hypervolume=torch.ones(3),
-                min_neff_cut=True, max_variance_cut=True,
+                min_neff_cut=True, max_variance_cut=True, log=True,
             )
 
 
@@ -153,3 +153,58 @@ def test_bench_model_potential_and_gradient_match_jax():
         jmodel()
     for name in ("logBFs", "log_nEffs", "log_nEff_inj", "rate", "surveyed_hypervolume", "log_l"):
         np.testing.assert_allclose(tr.trace[name]["value"][0].numpy(), np.asarray(jtr.trace[name]["value"]), rtol=1e-9, err_msg=name)
+
+
+def _linear_reproduction(seed=0):
+    """5 events x 400 linear PE weights in [0.5, 2] and 3000 linear injection
+    weights in [0.001, 0.01] (ROADMAP F5's reproduction)."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.5, 2.0, (5, 400)), rng.uniform(0.001, 0.01, 3000)
+
+
+F5_KW = dict(total_inj=2e4, Nobs=5, Tobs=1.0, surveyed_hypervolume=1.0, reconstruct_rate=False, min_neff_cut=False)
+
+
+def test_reference_style_linear_call_raises_and_the_log_call_matches():
+    """A call written for the JAX package (linear weights, no ``log=``) raises
+    in the port; the same call on the weights' logs with ``log=True`` gives
+    the JAX package's ``log_l`` on the linear weights."""
+    pe, inj = _linear_reproduction()
+    with jppl.trace() as jtr:
+        janalysis.hierarchical_likelihood(jnp.asarray(pe), jnp.asarray(inj), **F5_KW)
+    want = float(jtr.trace["log_l"]["value"])
+    assert abs(want - 36.62) < 0.01 and abs(float(jtr.trace["detection_efficiency"]["value"]) - 0.00082) < 1e-5
+    with pytest.raises(NotImplementedError, match="M2-M4 remainder"), ppl.trace():
+        analysis.hierarchical_likelihood(torch.tensor(pe)[None], torch.tensor(inj)[None], **F5_KW)
+    for fn, args in ((analysis.per_event_log_bayes_factors, (torch.tensor(pe),)),
+                     (analysis.detection_efficiency, (torch.tensor(inj), 2e4))):
+        with pytest.raises(NotImplementedError, match="M2-M4 remainder"):
+            fn(*args)
+    with ppl.trace() as tr:
+        analysis.hierarchical_likelihood(torch.tensor(np.log(pe))[None], torch.tensor(np.log(inj))[None], log=True, **F5_KW)
+    np.testing.assert_allclose(float(tr.trace["log_l"]["value"][0]), want, rtol=1e-12)
+    np.testing.assert_allclose(float(tr.trace["detection_efficiency"]["value"][0]),
+                               float(jtr.trace["detection_efficiency"]["value"]), rtol=1e-12)
+
+
+@pytest.mark.parametrize("option", [dict(categorical=True), dict(marginal_qs=True), dict(indv_weights=np.ones(3)),
+                                    dict(rngkey=0), dict(pop_frac=[0.5, 0.5])],
+                         ids=["categorical", "marginal_qs", "indv_weights", "rngkey", "pop_frac"])
+def test_unported_likelihood_options_raise(option):
+    pe, inj = _linear_reproduction()
+    with pytest.raises(NotImplementedError, match=f"{next(iter(option))} is not ported yet.*M2-M4 remainder"), ppl.trace():
+        analysis.hierarchical_likelihood(torch.tensor(np.log(pe))[None], torch.tensor(np.log(inj))[None], log=True,
+                                         **option, **F5_KW)
+
+
+@pytest.mark.parametrize("name", ["hierarchical_likelihood", "per_event_log_bayes_factors", "detection_efficiency"])
+def test_likelihood_signatures_match_the_reference(name):
+    """Each positional argument binds to the JAX package's parameter of the
+    same name, with the same default."""
+    import inspect
+
+    got = inspect.signature(getattr(analysis, name)).parameters
+    want = inspect.signature(getattr(janalysis, name)).parameters
+    assert list(got) == list(want)
+    for p in want.values():
+        assert got[p.name].kind == p.kind and got[p.name].default == p.default, p.name

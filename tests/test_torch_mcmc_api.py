@@ -3,7 +3,11 @@
 ``chain_method`` validation, sequential chains and chain batches (each a
 whole run with its own adaptation), ``"parallel"`` on one device, and
 ``collective_adaptation`` (one step size per chain, one pooled mass matrix),
-float64 on the CPU at the JAX tests' limits."""
+float64 on the CPU at the JAX tests' limits; and the keyword surface that
+``bench.py`` and ``examples/utils.py`` pass (``progress_bar`` on stderr
+only, ``jit_model_args``, ``mesh``, ``NUTS(init_strategy=)``)."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -36,8 +40,8 @@ def test_chain_method_validation():
         MCMC(NUTS(model), num_chains=4, chain_batch_size=2, collective_adaptation=True, **F64)
     with pytest.raises(ValueError, match="divide"):
         MCMC(NUTS(model), num_chains=6, chain_batch_size=4, **F64)
-    with pytest.raises(TypeError):
-        MCMC(NUTS(model), chain_groups=2, **F64)  # the async scheduler's tiling is not ported
+    with pytest.raises(ValueError, match="divide"):
+        MCMC(NUTS(model), chain_groups=2, **F64)  # one chain cannot be tiled into two groups
 
 
 def test_sequential_chain_method_samples():
@@ -91,3 +95,57 @@ def test_collective_adaptation_matches():
     assert inv.shape == (4, 3) and all(torch.equal(inv[0], inv[c]) for c in range(4))
     own = MCMC(NUTS(std_normal_model), num_warmup=200, num_samples=5, num_chains=4, **F64).run(4)
     assert not torch.equal(own._adapt_info["inverse_mass_matrix"][0], own._adapt_info["inverse_mass_matrix"][1])
+
+
+def test_progress_bar_writes_to_stderr_only(capsys):
+    m = MCMC(NUTS(model), num_warmup=20, num_samples=20, num_chains=2, progress_bar=True, **F64).run(1)
+    out = capsys.readouterr()
+    assert out.out == ""
+    lines = out.err.strip().splitlines()
+    assert len(lines) == 10 and lines[0].startswith("[mcmc] warmup step 4/40") and "divergences" in lines[0]
+    assert lines[-1].startswith("[mcmc] sample step 40/40")
+    # the progress line's divergence count is one more read a segment (of a
+    # tenth of the run)
+    quiet = MCMC(NUTS(model), num_warmup=20, num_samples=20, num_chains=2, max_steps_per_call=4, **F64).run(1)
+    assert m.host_reads == quiet.host_reads + 10
+    assert torch.equal(m.get_samples()["x"], quiet.get_samples()["x"])
+
+
+def test_unsupported_keywords_raise():
+    with pytest.raises(ValueError, match="jit_model_args"):
+        MCMC(NUTS(model), jit_model_args=True, **F64)
+    with pytest.raises(NotImplementedError, match="M11"):
+        MCMC(NUTS(model), mesh=object(), **F64)
+    assert NUTS(model, init_strategy=None).init_strategy is None
+
+
+def _args(**kw):
+    return SimpleNamespace(warmup=20, samples=10, chains=2, thinning=2, target_accept=0.8, max_tree_depth=6, **kw)
+
+
+@pytest.mark.parametrize("extra", [{}, dict(max_steps_per_call=7, chain_scheduler="sync")], ids=["defaults", "from-args"])
+def test_examples_and_bench_keyword_sets_run(extra, capsys):
+    """The keyword sets of ``examples/utils.py``'s runners (``progress_bar``,
+    ``max_steps_per_call`` and ``chain_scheduler`` from ``args``) and of
+    ``bench.py`` (``leapfrogs_per_round``, ``progress_bar``,
+    ``max_steps_per_call=25``) run on the port, plus ``device``/``dtype``."""
+    args = _args(**extra)
+    mcmc = MCMC(
+        NUTS(model, target_accept_prob=getattr(args, "target_accept", 0.8),
+             max_tree_depth=getattr(args, "max_tree_depth", 10)),
+        num_warmup=args.warmup,
+        num_samples=args.samples,
+        num_chains=args.chains,
+        thinning=args.thinning,
+        progress_bar=True,
+        max_steps_per_call=getattr(args, "max_steps_per_call", None),
+        chain_scheduler=getattr(args, "chain_scheduler", "auto"),
+        **F64,
+    )
+    mcmc.run(args.warmup)
+    assert mcmc.get_samples(group_by_chain=True)["x"].shape == (2, 10)
+    bench = MCMC(NUTS(model, dense_mass=True, max_tree_depth=6, target_accept_prob=0.8), num_warmup=20,
+                 num_samples=10, num_chains=2, leapfrogs_per_round=None, progress_bar=True, max_steps_per_call=25,
+                 **F64).run(0)
+    assert bench.get_samples()["x"].shape == (20,)
+    assert capsys.readouterr().out == ""

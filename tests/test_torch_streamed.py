@@ -247,12 +247,12 @@ def _weights(C=3, E=4, S=200, N=500, seed=0):
 )
 def test_summaries_seam_gives_the_sites_of_the_weight_path(flags):
     pe, inj = _weights()
-    kw = dict(total_inj=1e6, Nobs=4, Tobs=1.5, surveyed_hypervolume=torch.tensor([3e9, 5e9, 8e9]), **flags)
+    kw = dict(total_inj=1e6, Nobs=4, Tobs=1.5, surveyed_hypervolume=torch.tensor([3e9, 5e9, 8e9]), log=True, **flags)
     rates = {"unscaled_rate": torch.tensor([60.0, 75.0, 90.0])}
     with ppl.trace() as want, ppl.substitute(data=rates):
         analysis.hierarchical_likelihood(pe, inj, **kw)
-    logBFs, log_n_effs, _ = analysis.per_event_log_bayes_factors(pe)
-    log_mu, log_n_eff_inj, _ = analysis.detection_efficiency(inj, 1e6)
+    logBFs, log_n_effs, _ = analysis.per_event_log_bayes_factors(pe, log=True)
+    log_mu, log_n_eff_inj, _ = analysis.detection_efficiency(inj, 1e6, log=True)
     with ppl.trace() as got, ppl.substitute(data=rates):
         analysis.hierarchical_likelihood(
             None, None, pe_summaries=(logBFs, log_n_effs, pe.shape[-1]), inj_summaries=(log_mu, log_n_eff_inj), **kw
