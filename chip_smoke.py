@@ -64,19 +64,34 @@ and with its wall time as it ends:
    (NUTS, dense mass, 4 chains, depth 6) through the CLI's in-memory
    ``run_config``: summary, the CLI's four deterministic sites and one
    posterior-predictive site, all finite;
-9. the config route's sampler block with ``kernel: HMC`` through
+9. the rest of the model library on the same catalog (mass_2, chi_eff and
+   chi_p derived from its columns): the reference-style B-spline model of
+   the JAX package's tests with independent spins (:class:`LibraryModel`;
+   knots m1 50, q 30, a 16 + 16, tilt 16 + 16, z 20; whitened priors), its
+   linear route (``log=False``, plain sums, no kernel) against its log route
+   (K1) in float64 at 8 starts (``log_l`` to rtol 1e-9), the log route's
+   float32 gradient timed, profiled and held against a float64 CPU
+   evaluation on a slice, an 8-chain NUTS run on it (depth 6; K1 exactly twice a model run
+   by the async formula), the run's mass, spin and rate PPDs
+   (``postprocess/calculations.py``: finite, the pdfs normalized), two
+   subpopulation banks under ``categorical`` with a fixed key (two calls
+   equal bit for bit), then every other new model class and the linear
+   parametric models at full width (float32 against float64 on the card,
+   float64 on the card against the CPU on a slice); its wall time and peak
+   memory;
+10. the config route's sampler block with ``kernel: HMC`` through
    ``run_config`` (dense mass, 4 chains, the trajectory length 64 times the
    smallest step size of the run's own search): every site finite,
    divergences at most 10%;
-10. SVI on the bench flat route at one chain: ``find_map`` and ``SVI``
+11. SVI on the bench flat route at one chain: ``find_map`` and ``SVI``
     (AutoDelta from ``FIDUCIAL_INIT``, ``Adam(0.02)``, 300 steps; losses
     finite and falling, ``|MAP - TRUTH|`` per site, ms a step), then
     AutoNormal (4 particles, 50 steps);
-11. SMC on the bench flat route, 1024 particles and 5 mutation steps from a
+12. SMC on the bench flat route, 1024 particles and 5 mutation steps from a
     N(0, 0.2) base: beta = 1 reached within ``max_stages``, the log
     evidence and the particles finite and inside their supports, the peak
     memory;
-12. the kernels line (one JSON object), then the contract line
+13. the kernels line (one JSON object), then the contract line
     ``{"ok": true, "device": {...}}``, last on stdout.
 
 K1 is also held against its plain version at the config route's shapes
@@ -88,8 +103,9 @@ posterior-predictive site) and read just after: K1's from the flat route,
 K2's from the streamed route (where K1 must not run), K3's from the B-spline
 route (where K1 must not run either), K1's again from the config route,
 where it must launch exactly twice per model evaluation and K2 and K3 not
-at all, and so under HMC, SVI and SMC, each counted on its own (a model
-evaluation: one run of the model, counted by its ``log_likelihood`` site).
+at all, and so under HMC, SVI and SMC and on the library model's log route,
+each counted on its own (a model evaluation: one run of the model, counted
+by its ``log_likelihood`` site).
 
 Every NUTS run goes through the default scheduler, the async one (16 chains
 on the flat and streamed routes, 8 on the B-spline route, 4 on the config
@@ -158,14 +174,33 @@ from gwinferno_tpu_torch.pipeline.bench_model import BenchModel  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import jittered_init  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import beta_ab  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import COEF_SITES  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bspline_model import bank_log_weights  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import build_bspline_models  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import model_from_args  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import run_bspline_analysis  # noqa: E402
 from gwinferno_tpu_torch import ppl  # noqa: E402
+from gwinferno_tpu_torch.distributions import per_chain  # noqa: E402
+from gwinferno_tpu_torch.pipeline.analysis import hierarchical_likelihood  # noqa: E402
 from gwinferno_tpu_torch.pipeline.cli import DETERMINISTIC_SITES  # noqa: E402
 from gwinferno_tpu_torch.pipeline.cli import model_from_reader  # noqa: E402
 from gwinferno_tpu_torch.pipeline.cli import run_config  # noqa: E402
 from gwinferno_tpu_torch.pipeline.parser import ConfigReader  # noqa: E402
+from gwinferno_tpu_torch.models.bsplines import separable  # noqa: E402
+from gwinferno_tpu_torch.models.bsplines import single  # noqa: E402
+from gwinferno_tpu_torch.models.parametric.parametric import default_spin_tilt  # noqa: E402
+from gwinferno_tpu_torch.models.parametric.parametric import independent_spin_magnitude_beta_dist  # noqa: E402
+from gwinferno_tpu_torch.models.parametric.parametric import independent_spin_tilt  # noqa: E402
+from gwinferno_tpu_torch.models.parametric.parametric import plpeak_primary_ratio_pdf  # noqa: E402
+from gwinferno_tpu_torch.models.parametric.parametric import powerlaw_primary_ratio_falloff_pdf  # noqa: E402
+from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryPowerlawRatio  # noqa: E402
+from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryRatio  # noqa: E402
+from gwinferno_tpu_torch.postprocess import calculations  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import bspline_mass_prior  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import bspline_redshift_prior  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import bspline_spin_prior  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import setup_bspline_mass_models  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import setup_bspline_spin_models  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import setup_powerlaw_spline_redshift_model  # noqa: E402
 from gwinferno_tpu_torch.pipeline.utils import to_tensors  # noqa: E402
 from gwinferno_tpu_torch.ppl import ModelPotential  # noqa: E402
 from gwinferno_tpu_torch.ppl.handlers import Messenger  # noqa: E402
@@ -277,8 +312,9 @@ CONFIG_CHAINS = (4, 16)
 # at depth 6 costs up to 63); SVI's steps and rate (AutoDelta from
 # FIDUCIAL_INIT, then AutoNormal); SMC at the JAX package's defaults
 HMC_LEAPFROGS = 64
-# HMC's transitions; the earlier routes' are --warmup and --samples
-HMC_WARMUP, HMC_SAMPLES = 30, 20
+# HMC's transitions (30 + 20 until the library phase came; its warmup is the
+# smoke's costliest phase); the earlier routes' are --warmup and --samples
+HMC_WARMUP, HMC_SAMPLES = 20, 10
 SVI_STEPS, SVI_LR, SVI_NORMAL_STEPS, SVI_PARTICLES = 300, 0.02, 50, 4
 SMC_PARTICLES, SMC_MUTATIONS = 1024, 5
 # SMC's base is N(0, SMC_BASE_SCALE) in unconstrained space.  At the JAX
@@ -1327,6 +1363,516 @@ def bspline_route(args, catalog, gen):
     return k3, bspline_nuts(pedict, injdict, constants, bargs), ms
 
 
+# ----------------------------------------------------------------- library models (K1)
+
+
+def derived_columns(bank):
+    """``mass_2``, ``chi_eff`` and ``chi_p`` of a bank (host float64), from
+    its primary mass, mass ratio, spin magnitudes and tilt cosines."""
+    m1, q = (np.asarray(bank[k], dtype=np.float64) for k in ("mass_1", "mass_ratio"))
+    a1, a2, c1, c2 = (np.asarray(bank[k], dtype=np.float64) for k in ("a_1", "a_2", "cos_tilt_1", "cos_tilt_2"))
+    s1, s2 = np.sqrt(np.clip(1.0 - c1**2, 0.0, None)), np.sqrt(np.clip(1.0 - c2**2, 0.0, None))
+    return {
+        "mass_2": m1 * q,
+        "chi_eff": (a1 * c1 + q * a2 * c2) / (1.0 + q),
+        "chi_p": np.maximum(a1 * s1, (4.0 * q + 3.0) / (4.0 + 3.0 * q) * q * a2 * s2),
+    }
+
+
+class LibraryModel:
+    """The reference-style B-spline model (``tests/models/test_bspline_models.py``
+    of the JAX package) with independent spins, on the library's models:
+    ``models`` holds ``mass`` (:class:`BSplinePrimaryBSplineRatio`), ``mag``
+    and ``tilt`` (the independent pairs) and ``z``
+    (:class:`PowerlawSplineRedshiftModel`); the coefficient priors are the
+    pipeline's (``bspline_mass_prior``, ``bspline_spin_prior(IID=False)``,
+    ``bspline_redshift_prior``).
+
+    ``log=False`` is the reference's linear route: the product of the
+    factors over the prior, non-finite weights set to 0, and the likelihood
+    at its default ``log=False`` (plain sums, no kernel).  ``log=True`` sums
+    the factors' logs per sample and reduces both banks with K1.
+    """
+
+    def __init__(self, pedict, injdict, constants, models, log=True, reparam="whitened", min_neff_cut=True):
+        self.mass, self.mag, self.tilt, self.z = models["mass"], models["mag"], models["tilt"], models["z"]
+        ref = self.mass.primary_model.pe_design_matrix
+        self.banks = {}
+        for pe_samples, d in ((True, pedict), (False, injdict)):
+            z, prior = (np.asarray(d[k], dtype=np.float64) for k in ("redshift", "prior"))
+            self.banks[pe_samples] = tuple(torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
+                                           for v in (z, prior, np.log(prior)))
+        self.Nobs, self.Tobs, self.Ninj = constants["nObs"], constants["obs_time"], float(constants["total_inj"])
+        self.log, self.reparam, self.min_neff_cut = log, reparam, min_neff_cut
+
+    def coefficients(self):
+        """The coefficient and ``lamb`` sites: ``(mass, q, a1, tilt1, a2,
+        tilt2, z (with the pinned zero), lamb)``, at the reference's
+        smoothing scales."""
+        mass_cs, q_cs = bspline_mass_prior(m_nsplines=self.mass.primary_model.n_splines,
+                                           q_nsplines=self.mass.ratio_model.n_splines, m_tau=1, q_tau=1,
+                                           reparam=self.reparam)
+        spins = bspline_spin_prior(a_nsplines=self.mag.primary_model.n_splines,
+                                   ct_nsplines=self.tilt.primary_model.n_splines, a_tau=25, ct_tau=25,
+                                   IID=False, reparam=self.reparam)
+        z_cs = bspline_redshift_prior(z_nsplines=self.z.n_splines, z_tau=1, reparam=self.reparam)
+        return (mass_cs, q_cs, *spins, z_cs, ppl.sample("lamb", ppl.distributions.Normal(0.0, 3.0)))
+
+    def weights(self, cs, pe_samples):
+        """Per-sample weights (log-weights when ``log``) of one bank:
+        ``(C, E, S)`` or ``(C, N)``."""
+        mass_cs, q_cs, a1, ct1, a2, ct2, z_cs, lamb = cs
+        z, prior, log_prior = self.banks[pe_samples]
+        factors = (self.mass(mass_cs, q_cs, pe_samples=pe_samples), self.mag(a1, a2, pe_samples=pe_samples),
+                   self.tilt(ct1, ct2, pe_samples=pe_samples), self.z(z, lamb, z_cs))
+        if self.log:
+            return bank_log_weights(factors, log_prior)
+        w = factors[0] * factors[1] * factors[2] * factors[3] / prior
+        return torch.where(torch.isnan(w) | torch.isinf(w), 0.0, w)
+
+    def __call__(self):
+        cs = self.coefficients()
+        hierarchical_likelihood(self.weights(cs, True), self.weights(cs, False), total_inj=self.Ninj, Nobs=self.Nobs,
+                                Tobs=self.Tobs, surveyed_hypervolume=self.z.normalization(cs[-1], cs[-2]),
+                                min_neff_cut=self.min_neff_cut, log=self.log)
+
+
+def library_models(pedict, injdict, device, dtype):
+    """The library model's pieces at production knots (``BSPLINE_KNOTS``)
+    with the independent spin pairs, on ``device`` in ``dtype``."""
+    k = BSPLINE_KNOTS
+    mag, tilt = setup_bspline_spin_models(pedict, injdict, k["a_nsplines"], k["tilt_nsplines"], iid=False, device=device,
+                                          dtype=dtype)
+    return {
+        "mass": setup_bspline_mass_models(pedict, injdict, k["m_nsplines"], k["q_nsplines"], BSPLINE_MMIN, BSPLINE_MMAX,
+                                          device=device, dtype=dtype),
+        "mag": mag,
+        "tilt": tilt,
+        "z": setup_powerlaw_spline_redshift_model(pedict, injdict, k["z_nsplines"], device=device, dtype=dtype),
+    }
+
+
+def _slice(pedict, injdict, constants, n_events=10, n_found=10000):
+    """The first ``n_events`` events with all their samples and the first
+    ``n_found`` injections (the CPU reference checks' slice)."""
+    return ({k: v[:n_events] for k, v in pedict.items()}, {k: v[:n_found] for k, v in injdict.items()},
+            dict(constants, nObs=n_events))
+
+
+def library_routes(catalog, gen):
+    """The library model's two routes in float64 on the card at the same 8
+    off-wall starts: every diagnostic site of the linear route (no kernel)
+    against the log route's (K1, two launches), ``log_l`` to rtol 1e-9.
+    Returns the starts' constrained values."""
+    pedict, injdict, constants = catalog
+    dev = torch.device("cuda")
+    with phase(f"library model build, float64 ({BSPLINE_CHAINS} chains' reference)"):
+        models = library_models(pedict, injdict, dev, torch.float64)
+        torch.cuda.synchronize()
+    with phase("library routes: linear (log=False) against log (K1), float64, "
+               f"{BSPLINE_CHAINS} chains"):
+        log_model = LibraryModel(pedict, injdict, constants, models, log=True)
+        pot = ModelPotential(log_model, device=dev, dtype=torch.float64)
+        z0 = find_valid_initial_params(pot, BSPLINE_CHAINS, gen)
+        params = {k: v.detach() for k, v in pot.constrain(z0).items()}
+        traces = {}
+        for route, log_route in (("linear", False), ("log", True)):
+            _zero_counts()
+            with torch.no_grad(), ppl.trace() as tr, ppl.substitute(data=params):
+                LibraryModel(pedict, injdict, constants, models, log=log_route)()
+            torch.cuda.synchronize()
+            traces[route] = (tr.trace, DLSE_KERNEL.launches)
+        (lin, n_lin), (lg, n_log) = traces["linear"], traces["log"]
+        if (n_lin, n_log) != (0, 2):
+            raise AssertionError(f"K1 launches per run: linear route {n_lin}, log route {n_log}; want 0 and 2")
+        worst = {}
+        for name in ("log_l", "logBFs", "log_nEffs", "log_nEff_inj", "detection_efficiency", "rate"):
+            a, b = lin[name]["value"], lg[name]["value"]
+            worst[name] = float(((a - b).abs() / b.abs()).max())
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=0.0, msg=lambda m, n=name: f"{n}: {m}")
+        log(f"  linear vs log route, float64: max rel diff " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f"; log_l in [{float(lg['log_l']['value'].min()):.3f}, {float(lg['log_l']['value'].max()):.3f}]; "
+            f"K1 launches a run: linear {n_lin}, log {n_log}")
+    del models
+    return params
+
+
+def check_library_against_cpu(catalog, params):
+    """The log route's float32 potential and gradient on the card against a
+    float64 CPU evaluation on a slice of the catalog, as
+    :func:`check_bspline_against_cpu` does for the production model."""
+    pe, inj, const = _slice(*catalog)
+    out = []
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = LibraryModel(pe, inj, const, library_models(pe, inj, dev, dtype), log=True)
+        pot = ModelPotential(model, device=dev, dtype=dtype)
+        z = pot.unconstrain({k: v.to(dev, dtype) for k, v in params.items()}, BSPLINE_CHAINS)
+        out.append([t.double().cpu() for t in pot.value_and_grad(z)])
+    (u32, g32), (u64, g64) = out
+    ok = (u64.abs() < 1e30) & (u32.abs() < 1e30)
+    if not (bool(torch.isfinite(u64).all()) and int(ok.sum()) >= BSPLINE_CHAINS // 2):
+        raise AssertionError(f"reference potential off the likelihood walls expected, got {u64}")
+    torch.testing.assert_close(u32[ok], u64[ok], rtol=1e-4, atol=1e-3)
+    rel = float((g32[ok] - g64[ok]).norm() / g64[ok].norm())
+    if not rel < 1e-3:
+        raise AssertionError(f"float32 card gradient differs from the float64 CPU one: relative error {rel:.3e}")
+    log(f"  card f32 (log route) vs CPU f64 on {pe['mass_1'].shape[0]} events x {N_SAMPLES} + "
+        f"{inj['mass_1'].shape[0]} injections, {int(ok.sum())} of {BSPLINE_CHAINS} chains off the walls: "
+        f"max|dU|={float((u32 - u64)[ok].abs().max()):.3e}, grad rel err={rel:.3e}")
+
+
+LIBRARY_COEF_SITES = ("mass_cs", "q_cs", "a1_cs", "a2_cs", "tilt1_cs", "tilt2_cs", "z_cs")
+
+
+def library_nuts(catalog, models, args):
+    """NUTS on the library model's log route (float32, 8 chains, target 0.9,
+    diagonal mass, depth 6, the default scheduler): K1 exactly twice a model
+    run by the async formula, K2 and K3 never.  Returns ``(K1 launches,
+    posterior with the coefficient blocks and the rate)``."""
+    pedict, injdict, constants = catalog
+    model = LibraryModel(pedict, injdict, constants, models, log=True)
+    mcmc = MCMC(NUTS(model, target_accept_prob=0.9, max_tree_depth=MAX_TREE_DEPTH), num_warmup=args.warmup,
+                num_samples=args.samples, num_chains=BSPLINE_CHAINS, device="cuda", dtype=torch.float32)
+    _zero_counts()
+    with phase(f"NUTS on the library log route: {args.warmup} warmup + {args.samples} samples, {BSPLINE_CHAINS} "
+               f"chains, whitened, target 0.9, diagonal mass, depth {MAX_TREE_DEPTH}"), ModelRuns() as runs:
+        mcmc.run(args.seed)
+        torch.cuda.synchronize()
+    n_k1 = _check_k1_only("the library log route", runs.runs)
+    check_async_runs("library log", mcmc, runs.runs, outside_loop_runs(mcmc, args.seed))
+    extra = mcmc.get_extra_fields()
+    posterior = dict(mcmc.get_samples())
+    posterior.update(mcmc.get_deterministic(site_names={"rate", *LIBRARY_COEF_SITES}))
+    n_draws = args.samples * BSPLINE_CHAINS
+    for k, v in posterior.items():
+        if v.shape[0] != n_draws or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"library route, site {k}: values of shape {tuple(v.shape)} not finite")
+    log(f"  timings: init {mcmc.timings['init']:.2f} s, warmup {mcmc.timings.get('warmup', 0.0):.2f} s, "
+        f"sampling {mcmc.timings['sample']:.2f} s; mean tree depth {float(extra['tree_depth'].double().mean()):.2f}, "
+        f"divergences {int(extra['diverging'].sum())}, mean accept {float(extra['accept_prob'].mean()):.3f}; "
+        f"{len(posterior)} sites finite; posterior means lamb {float(posterior['lamb'].double().mean()):.3f}, "
+        f"rate {float(posterior['rate'].double().mean()):.3f}")
+    return n_k1, posterior
+
+
+def library_ppds(posterior, z_model):
+    """The posterior-predictive distributions of the library run's draws
+    (mass, independent spins, rate of z), float32 on the card: finite, and
+    the mass and spin PPDs (``rate=None``) integrate to 1 within 1e-3."""
+    k = BSPLINE_KNOTS
+    cpu = {key: v.double().cpu().numpy() for key, v in posterior.items()}
+    with phase(f"library PPDs of the run's {cpu['lamb'].shape[0]} draws (grids of {calculations.GRID_N})"):
+        mp, ms, qp, qs = calculations.calculate_bspline_mass_ppds(
+            cpu["mass_cs"], cpu["q_cs"], {"m1": k["m_nsplines"], "q": k["q_nsplines"]}, BSPLINE_MMIN, BSPLINE_MMAX,
+            device="cuda")
+        a1p, a2p, aa, ct1p, ct2p, cc = calculations.calculate_bspline_spin_ppds(
+            cpu["a1_cs"], cpu["tilt1_cs"], {"a1": k["a_nsplines"], "a2": k["a_nsplines"], "tilt1": k["tilt_nsplines"],
+                                           "tilt2": k["tilt_nsplines"]},
+            a2_cs=cpu["a2_cs"], tilt2_cs=cpu["tilt2_cs"], device="cuda")
+        rz, zs = calculations.calculate_powerlaw_spline_rate_of_z_ppds(cpu["lamb"], cpu["z_cs"], cpu["rate"], z_model)
+        worst = 0.0
+        for name, pdfs, grid in (("m1", mp, ms), ("q", qp, qs), ("a1", a1p, aa), ("a2", a2p, aa), ("tilt1", ct1p, cc),
+                                 ("tilt2", ct2p, cc), ("R(z)", rz, zs)):
+            if not np.isfinite(pdfs).all() or pdfs.shape != (cpu["lamb"].shape[0], grid.shape[0]):
+                raise AssertionError(f"PPD {name}: shape {pdfs.shape} or values not finite")
+            if name != "R(z)":
+                err = float(np.abs(np.trapezoid(pdfs, grid, axis=-1) - 1.0).max())
+                worst = max(worst, err)
+                if not err < 1e-3:
+                    raise AssertionError(f"PPD {name} integrates to 1 +- {err:.2e}")
+        log(f"  m1, q, a1, a2, tilt1, tilt2 and R(z) PPDs finite; the six pdfs integrate to 1 within {worst:.2e}; "
+            f"median R(z) at z = {zs[0]:.3f}, {zs[-1]:.3f}: {np.median(rz[:, 0]):.3f}, {np.median(rz[:, -1]):.3f}")
+
+
+def _library_cases(seed):
+    """Every other new model class, and the linear parametric models, as
+    ``name -> case``: ``case["build"](pe, inj, kw)`` makes the model (``kw``
+    the device and dtype; None for a plain function), ``case["call"](model,
+    bank, params, pe_samples)`` evaluates it on a bank's columns, and
+    ``case["params"]`` holds ``(C, ...)`` numpy coefficients and
+    hyperparameters, one set per chain.  ``q_mmin`` (a number, or a key of
+    ``params``) marks a powerlaw mass ratio on ``[q_mmin / m1, 1]``;
+    ``not_held`` says why float32 is not held to float64 (see
+    :func:`library_model_classes`)."""
+    rng = np.random.default_rng(seed)
+    C, K = BSPLINE_CHAINS, BSPLINE_KNOTS
+    m_k, q_k, s_k, z_k = K["m_nsplines"], K["q_nsplines"], K["a_nsplines"], K["z_nsplines"]
+
+    def co(n, scale=0.3):
+        return scale * rng.standard_normal((C, n))
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, C)
+
+    def hp(b, v):
+        return per_chain(v, b["mass_1"].ndim)
+
+    def case(build, call, params, q_mmin=None, not_held=None):
+        return dict(build=build, call=call, params=params, q_mmin=q_mmin, not_held=not_held)
+
+    def coefs_only(m, b, p, pe):
+        return m(p["c"], pe_samples=pe)
+
+    def pair(m, b, p, pe):
+        return m(p["c1"], p["c2"], pe_samples=pe)
+
+    def no_model(pe, inj, kw):
+        return None
+
+    mm = dict(mmin=BSPLINE_MMIN, mmax=BSPLINE_MMAX)
+    ratio = lambda pe, inj, kw: PowerlawBasisSplinePrimaryRatio(  # noqa: E731
+        m_k, q_k, pe["mass_1"], pe["mass_ratio"], inj["mass_1"], inj["mass_ratio"], **mm, **kw)
+    return {
+        # its basis (LogXBSpline, normalized) divides the curve by its
+        # integral, so the coefficients of a density keep it positive
+        "BSplineRedshift": case(
+            lambda pe, inj, kw: single.BSplineRedshift(z_k, pe["redshift"], inj["redshift"], COSMO.dVcdz(pe["redshift"]),
+                                                       COSMO.dVcdz(inj["redshift"]), **kw),
+            coefs_only, {"c": 1.0 + co(z_k)}),
+        "BSplineChiEffective": case(
+            lambda pe, inj, kw: single.BSplineChiEffective(s_k, pe["chi_eff"], inj["chi_eff"], **kw), coefs_only,
+            {"c": co(s_k)}),
+        "BSplineSymmetricChiEffective": case(
+            lambda pe, inj, kw: single.BSplineSymmetricChiEffective(s_k, pe["chi_eff"], inj["chi_eff"], **kw),
+            coefs_only, {"c": co(s_k)}),
+        "BSplineChiPrecess": case(
+            lambda pe, inj, kw: single.BSplineChiPrecess(s_k, pe["chi_p"], inj["chi_p"], **kw), coefs_only,
+            {"c": co(s_k)}),
+        "BSplineEffectiveSpinDims": case(
+            lambda pe, inj, kw: separable.BSplineEffectiveSpinDims(s_k, s_k, pe["chi_eff"], pe["chi_p"], inj["chi_eff"],
+                                                                   inj["chi_p"], **kw),
+            pair, {"c1": co(s_k), "c2": co(s_k)}),
+        "BSplinePrimaryPowerlawRatio": case(
+            lambda pe, inj, kw: separable.BSplinePrimaryPowerlawRatio(m_k, pe["mass_1"], inj["mass_1"], **mm, **kw),
+            lambda m, b, p, pe: m(b["mass_1"], b["mass_ratio"], p["beta"], p["mmin"], p["c"], pe_samples=pe),
+            {"c": co(m_k), "beta": u(-1.0, 2.0), "mmin": u(3.0, 6.0)}, q_mmin="mmin"),
+        "PLPeakPrimaryBSplineRatio": case(
+            lambda pe, inj, kw: separable.PLPeakPrimaryBSplineRatio(q_k, pe["mass_ratio"], inj["mass_ratio"], **kw),
+            lambda m, b, p, pe: m(b["mass_1"], p["alpha"], p["mmin"], p["mmax"], p["mu"], p["sig"], p["lam"], p["c"],
+                                  pe_samples=pe),
+            {"c": co(q_k), "alpha": u(-3.0, -1.5), "mmin": u(3.0, 6.0), "mmax": u(80.0, 100.0), "mu": u(25.0, 40.0),
+             "sig": u(2.0, 8.0), "lam": u(0.05, 0.5)}),
+        "BSplineIIDComponentMasses": case(
+            lambda pe, inj, kw: separable.BSplineIIDComponentMasses(m_k, pe["mass_1"], pe["mass_2"], inj["mass_1"],
+                                                                    inj["mass_2"], **mm, **kw),
+            lambda m, b, p, pe: m(p["c"], beta=p["beta"], pe_samples=pe), {"c": co(m_k), "beta": u(-1.0, 2.0)}),
+        "BSplineIndependentComponentMasses": case(
+            lambda pe, inj, kw: separable.BSplineIndependentComponentMasses(
+                m_k, m_k, pe["mass_1"], pe["mass_2"], inj["mass_1"], inj["mass_2"], mmin1=BSPLINE_MMIN,
+                mmax1=BSPLINE_MMAX, mmin2=BSPLINE_MMIN, mmax2=BSPLINE_MMAX, **kw),
+            lambda m, b, p, pe: m(p["c1"], p["c2"], beta=p["beta"], pe_samples=pe),
+            {"c1": co(m_k), "c2": co(m_k), "beta": u(-1.0, 2.0)}),
+        "PowerlawBasisSplinePrimaryPowerlawRatio": case(
+            lambda pe, inj, kw: PowerlawBasisSplinePrimaryPowerlawRatio(m_k, pe["mass_1"], inj["mass_1"], mmin=BSPLINE_MMIN,
+                                                                        m2min=BSPLINE_MMIN, mmax=BSPLINE_MMAX, **kw),
+            lambda m, b, p, pe: m(b["mass_1"], b["mass_ratio"], alpha=p["alpha"], mmin=BSPLINE_MMIN, mmax=p["mmax"],
+                                  cs=p["c"], beta=p["beta"]),
+            {"c": co(m_k), "alpha": u(1.5, 3.0), "mmax": u(80.0, 100.0), "beta": u(-1.0, 2.0)}, q_mmin=BSPLINE_MMIN),
+        # at its default mmin (the grid's first mass) the joint grid's first
+        # column has the q support [mmin/m, 1] = [1, 1]: the powerlaw norm's
+        # eps clamp puts 1/eps of the dtype there, and the normalization
+        # follows the dtype (ROADMAP F8, the JAX package's semantics); with
+        # a per-chain mmin above the grid's start no column is degenerate
+        "PowerlawBasisSplinePrimaryRatio": case(
+            ratio,
+            lambda m, b, p, pe: m(b["mass_1"], b["mass_ratio"], alpha=p["alpha"], mmax=p["mmax"], cs=p["c1"],
+                                  beta=p["beta"], vs=p["c2"]),
+            {"c1": co(m_k), "c2": co(q_k), "alpha": u(1.5, 3.0), "mmax": u(80.0, 100.0), "beta": u(-1.0, 2.0)},
+            q_mmin=BSPLINE_MMIN,
+            not_held="the default mmin's normalization is 1/eps of the dtype (F8): float32 and float64 differ by design"),
+        "PowerlawBasisSplinePrimaryRatio (per-chain mmin)": case(
+            ratio,
+            lambda m, b, p, pe: m(b["mass_1"], b["mass_ratio"], alpha=p["alpha"], mmin=p["mmin"], mmax=p["mmax"],
+                                  cs=p["c1"], beta=p["beta"], vs=p["c2"]),
+            {"c1": co(m_k), "c2": co(q_k), "alpha": u(1.5, 3.0), "mmin": u(3.5, 6.0), "mmax": u(80.0, 100.0),
+             "beta": u(-1.0, 2.0)}, q_mmin="mmin"),
+        "plpeak_primary_ratio_pdf (delta)": case(
+            no_model,
+            lambda m, b, p, pe: plpeak_primary_ratio_pdf(b["mass_1"], b["mass_ratio"], hp(b, p["alpha"]), hp(b, p["beta"]),
+                                                         MMIN, MMAX, hp(b, p["mu"]), hp(b, p["sig"]), hp(b, p["lam"]),
+                                                         delta=hp(b, p["delta"])),
+            {"alpha": u(-3.0, -1.5), "beta": u(-1.0, 2.0), "mu": u(25.0, 40.0), "sig": u(2.0, 8.0),
+             "lam": u(0.05, 0.5), "delta": u(1.0, 6.0)}, q_mmin=MMIN),
+        "powerlaw_primary_ratio_falloff_pdf": case(
+            no_model,
+            lambda m, b, p, pe: powerlaw_primary_ratio_falloff_pdf(b["mass_1"], b["mass_ratio"], hp(b, p["alpha"]),
+                                                                   hp(b, p["beta"]), MMIN, MMAX, 2.0),
+            {"alpha": u(-3.0, -1.5), "beta": u(-1.0, 2.0)}, q_mmin=MMIN),
+        "independent_spin_magnitude_beta_dist x independent_spin_tilt": case(
+            no_model,
+            lambda m, b, p, pe: independent_spin_magnitude_beta_dist(
+                b["a_1"], b["a_2"], hp(b, p["a1"]), hp(b, p["b1"]), hp(b, p["a2"]), hp(b, p["b2"]))
+            * independent_spin_tilt(b["cos_tilt_1"], b["cos_tilt_2"], hp(b, p["x1"]), hp(b, p["x2"]), hp(b, p["s1"]),
+                                    hp(b, p["s2"])),
+            {"a1": u(1.5, 4.0), "b1": u(1.5, 6.0), "a2": u(1.5, 4.0), "b2": u(1.5, 6.0), "x1": u(0.1, 0.9),
+             "x2": u(0.1, 0.9), "s1": u(0.2, 2.0), "s2": u(0.2, 2.0)}),
+        "default_spin_tilt": case(
+            no_model,
+            lambda m, b, p, pe: default_spin_tilt(b["cos_tilt_1"], b["cos_tilt_2"], hp(b, p["x"]), hp(b, p["s"])),
+            {"x": u(0.1, 0.9), "s": u(0.2, 2.0)}),
+        "PowerlawRedshiftModel": case(
+            lambda pe, inj, kw: PowerlawRedshiftModel(pe["redshift"], inj["redshift"], **kw),
+            lambda m, b, p, pe: m(b["redshift"], hp(b, p["lamb"])), {"lamb": u(-1.0, 4.0)}),
+    }
+
+
+LIBRARY_COLUMNS = ("mass_1", "mass_ratio", "mass_2", "redshift", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2", "chi_eff",
+                   "chi_p")
+
+
+def _evaluate_case(case, pe, inj, device, dtype, built):
+    """A case's values on both banks: ``(PE (C, E, S), injections (C, N))``;
+    ``built`` keeps the models of the last builder (the two cases of one
+    class share them)."""
+    key = (case["build"], device, dtype, id(pe))
+    if key not in built:
+        built[key] = case["build"](pe, inj, dict(device=device, dtype=dtype))
+    model = built[key]
+    p = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in case["params"].items()}
+    with torch.no_grad():
+        return tuple(case["call"](model, to_tensors({k: d[k] for k in LIBRARY_COLUMNS}, device, dtype), p, pe_samples)
+                     for pe_samples, d in ((True, pe), (False, inj)))
+
+
+F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def _q_condition(case, m1):
+    """How far float32's rounding is amplified in a powerlaw mass ratio on
+    ``[mmin / m1, 1]``: its norm divides by the support's log-width, so one
+    rounding of ``mmin / m1`` moves the pdf by about ``eps / |log(mmin /
+    m1)|`` relative.  Returns ``max(1, 1 / |log(mmin / m1)|)`` (1 for a case
+    without such a ratio)."""
+    mmin = case["q_mmin"]
+    if mmin is None:
+        return 1.0
+    if isinstance(mmin, str):
+        mmin = per_chain(torch.as_tensor(case["params"][mmin], dtype=m1.dtype, device=m1.device), m1.ndim)
+    return (1.0 / torch.log(mmin / m1).abs()).clamp_min(1.0)
+
+
+def library_model_classes(catalog, seed):
+    """Every other new model class and the linear parametric models at full
+    width, 8 chains: finite on both banks; float32 on the card against
+    float64 on the card to rtol 1e-4 and atol 1e-6 of the bank's largest
+    value, plus ``8 eps32`` times the ratio's condition number where a
+    powerlaw mass ratio's support is nearly empty (:func:`_q_condition`;
+    the elements that need it are counted), except where a case says why
+    not; and float64 on the card against float64 on the CPU on a slice
+    (rtol 1e-9)."""
+    pe, inj, const = catalog
+    pe_s, inj_s, _ = _slice(pe, inj, const)
+    cases = _library_cases(seed)
+    with phase(f"library model classes: {len(cases)} cases at full width, {BSPLINE_CHAINS} chains, float32 and "
+               "float64 on the card, float64 on the CPU on a slice"):
+        built = {}
+        for name, case in cases.items():
+            t0 = time.perf_counter()
+            if not any(k[0] is case["build"] for k in built):
+                built.clear()
+                torch.cuda.empty_cache()
+            f32, f64, s64, c64 = (_evaluate_case(case, *banks, dev, dtype, built) for banks, dev, dtype in (
+                ((pe, inj), "cuda", torch.float32), ((pe, inj), "cuda", torch.float64),
+                ((pe_s, inj_s), "cuda", torch.float64), ((pe_s, inj_s), "cpu", torch.float64)))
+            errs, n_cond = [], 0
+            for a, b, sa, sb, d in zip(f32, f64, s64, c64, (pe, inj)):
+                if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+                    raise AssertionError(f"{name}: values not finite")
+                scale = float(b.abs().max())
+                diff = (a.double() - b).abs()
+                plain = 1e-6 * scale + 1e-4 * b.abs()
+                kappa = _q_condition(case, torch.as_tensor(d["mass_1"], dtype=torch.float64, device="cuda"))
+                bad = diff > plain + 8.0 * F32_EPS * kappa * b.abs()
+                if case["not_held"] is None and bool(bad.any()):
+                    i = int(torch.argmax((diff - plain).flatten()))
+                    raise AssertionError(f"{name}: float32 differs from float64 at {int(bad.sum())} of {b.numel()} "
+                                         f"values; worst {float(a.flatten()[i])} against {float(b.flatten()[i])}")
+                n_cond += int(((diff > plain) & ~bad).sum())
+                torch.testing.assert_close(sa.cpu(), sb, rtol=1e-9, atol=1e-12 * float(sb.abs().max()),
+                                           msg=lambda m: f"{name} (slice, card vs CPU): {m}")
+                errs.append(float((diff / b.abs().clamp_min(1e-6 * scale)).max()))
+            held = (f"not held: {case['not_held']}" if case["not_held"] else
+                    f"held ({n_cond} values within the ratio's conditioning allowance)")
+            log(f"  {name}: PE {tuple(f64[0].shape)}, injections {tuple(f64[1].shape)}; f32 vs f64 max rel err "
+                f"{max(errs):.2e}, {held}; card vs CPU on the slice held; {time.perf_counter() - t0:.2f} s")
+
+
+def library_categorical(catalog, models, params, seed):
+    """Categorical subpopulations on the card: two banks of the library
+    model's log-weights (at the run's starts and at half their
+    coefficients), ``pop_frac = [0.3, 0.7]``, a fixed ``rngkey`` (an int,
+    and a generator on the card, which is not advanced): two calls give
+    identical ``Qs`` and ``log_l`` bit for bit, K1 twice a call."""
+    pedict, injdict, constants = catalog
+    model = LibraryModel(pedict, injdict, constants, models, log=True)
+    with phase("library categorical subpopulations: two banks, pop_frac [0.3, 0.7], a fixed key"), torch.no_grad():
+        banks = []
+        for scale in (1.0, 0.5):
+            p = {k: (v * scale if k.endswith("_white") else v).to("cuda", torch.float32) for k, v in params.items()}
+            with ppl.trace() as tr, ppl.substitute(data=p):
+                cs = model.coefficients()
+            banks.append((model.weights(cs, True), model.weights(cs, False)))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state = gen.get_state()
+        for key in (seed, gen):
+            runs = []
+            for _ in range(2):
+                _zero_counts()
+                with ppl.trace() as tr:
+                    hierarchical_likelihood((banks[0][0], banks[1][0]), banks[0][1], total_inj=float(constants["total_inj"]),
+                                            Nobs=constants["nObs"], Tobs=constants["obs_time"], reconstruct_rate=False,
+                                            categorical=True, rngkey=key, pop_frac=[0.3, 0.7], log=True)
+                torch.cuda.synchronize()
+                runs.append((tr.trace["Qs"]["value"], tr.trace["log_l"]["value"], DLSE_KERNEL.launches))
+            (q0, l0, n0), (q1, l1, n1) = runs
+            if not (torch.equal(q0, q1) and torch.equal(l0, l1)):
+                raise AssertionError(f"rngkey {key}: two calls differ")
+            if (n0, n1) != (2, 2) or not bool(torch.isfinite(l0).all()) or q0.shape != (constants["nObs"],):
+                raise AssertionError(f"rngkey {key}: K1 launches {n0}, {n1}; Qs {tuple(q0.shape)}; log_l {l0}")
+            log(f"  rngkey {'int' if isinstance(key, int) else 'cuda generator'}: Qs ({q0.device.type}) "
+                f"{int(q0.sum())} of {q0.numel()} events in the second subpopulation, log_l "
+                f"[{float(l0.min()):.3f}, {float(l0.max()):.3f}], two calls equal bit for bit, K1 2 a call")
+        if not torch.equal(gen.get_state(), state):
+            raise AssertionError("the caller's generator was advanced")
+
+
+def library_route(args, catalog, gen):
+    """The rest of the model library on the card: the reference-style
+    B-spline model with independent spins on both routes, its NUTS run and
+    PPDs, every other new model class, and categorical subpopulations.
+    Returns ``(K1 launches of the NUTS run, log route gradient ms)``."""
+    pedict, injdict, constants = catalog
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pe = dict(pedict, **derived_columns(pedict))
+    inj = dict(injdict, **derived_columns(injdict))
+    params = library_routes((pe, inj, constants), gen)
+    with phase("library model build, float32"):
+        models = library_models(pe, inj, "cuda", torch.float32)
+        torch.cuda.synchronize()
+    with phase(f"library log route: gradient, {BSPLINE_CHAINS} chains, float32; CPU float64 reference check"):
+        pot = ModelPotential(LibraryModel(pe, inj, constants, models, log=True), device="cuda", dtype=torch.float32)
+        z = pot.unconstrain({k: v.to("cuda", torch.float32) for k, v in params.items()}, BSPLINE_CHAINS)
+        u, g = pot.value_and_grad(z)
+        if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all())):
+            raise AssertionError("library log route: potential or gradient not finite")
+        times = [call_ms(lambda: pot.value_and_grad(z)) for _ in range(10)]
+        grad_ms = float(np.median(times))
+        log(f"  one batched potential + gradient: {grad_ms:.3f} ms (CUDA events, median of 10)")
+        check_library_against_cpu((pedict, injdict, constants), params)
+    with phase("profile of one library log-route potential + gradient"):
+        profile_routes({"library log": pot}, z)
+    n_k1, posterior = library_nuts((pe, inj, constants), models, args)
+    library_ppds(posterior, models["z"])
+    library_categorical((pe, inj, constants), models, params, args.seed)
+    del models, pot
+    torch.cuda.empty_cache()
+    library_model_classes((pe, inj, constants), args.seed)
+    log(f"  library phase: {time.perf_counter() - t0:.2f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return n_k1, grad_ms
+
+
 # ----------------------------------------------------------------- scheduler
 
 
@@ -1818,6 +2364,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     config_launches, config_ms = config_route(args, (pedict, injdict, constants), gen)
     torch.cuda.empty_cache()
+    library_launches, library_ms = library_route(args, (pedict, injdict, constants), gen)
+    torch.cuda.empty_cache()
     hmc_launches = config_hmc(pedict, injdict, constants, args)
     svi_launches, svi_ms = svi_route((pedict, injdict, constants), z_model, args)
     smc_launches, smc_stages, smc_peak = smc_route((pedict, injdict, constants), z_model, args)
@@ -1849,6 +2397,10 @@ def main(argv=None):
             "config_bound_ms": k1["config_pe"]["bound_ms"] + k1["config_inj"]["bound_ms"],
             "config_route_launches": config_launches,
             "config_route_grad_ms": {str(C): v for C, v in config_ms.items()},
+            # the library model's log route: its NUTS run's launches and its
+            # gradient at C = 8 (its linear route launches none)
+            "library_route_launches": library_launches,
+            "library_route_grad_ms": library_ms,
             # SMC's two calls at 1024 particles (kernel, plain, library, bound)
             "smc_ms": k1["smc_pe"]["ms"] + k1["smc_inj"]["ms"],
             "smc_plain_ms": k1["smc_pe"]["plain_ms"] + k1["smc_inj"]["plain_ms"],

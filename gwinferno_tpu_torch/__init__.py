@@ -14,7 +14,9 @@ Conventions shared by every module:
 - chains are an explicit leading axis: a potential takes ``(C, D)``
   unconstrained points and returns ``(C,)``, and every sampled site value
   carries that leading chain axis;
-- random draws take an explicit ``torch.Generator``;
+- random draws take an explicit ``torch.Generator``; a site with its own
+  key (``sample(..., rng_key=...)``) takes an int seed or a generator and
+  draws the same values in every run of the model;
 - every TPU (Pallas) kernel on the port's path is a hand-written CUDA kernel
   under ``ops/csrc/`` with a plain-torch version beside it, which is what a
   CPU tensor runs.

@@ -1,7 +1,8 @@
-"""Elementary population-model log-pdfs on torch tensors.
+"""Elementary population-model pdfs on torch tensors.
 
-Counterpart of ``gwinferno_tpu/distributions.py`` for the functions the
-powerlaw+peak main path uses.  The error function and log-gamma are torch's
+Counterpart of ``gwinferno_tpu/distributions.py``: the log-space pdfs and
+the linear ones (each the ``exp`` of its log form, or the reference's
+linear formula).  The error function and log-gamma are torch's
 own (``torch.special.erf``, ``torch.lgamma``): the JAX package's Cody and
 Lanczos rational forms exist only because Pallas TPU kernels cannot lower
 those primitives.
@@ -26,8 +27,15 @@ __all__ = [
     "safe_log",
     "safe_logaddexp",
     "smooth",
+    "logistic_function",
+    "logistic_unit",
+    "log_logistic_unit",
+    "powerlaw_logit_pdf",
+    "powerlaw_pdf",
     "log_powerlaw_pdf",
+    "truncnorm_pdf",
     "log_truncnorm_pdf",
+    "betadist",
     "log_betadist",
 ]
 
@@ -72,6 +80,57 @@ def smooth(dx, x, xmin):
     return torch.where(below, 0.0, torch.where(above, 1.0, window))
 
 
+def logistic_function(x, L, k, x0):
+    """Logistic curve ``L / (1 + exp(-k (x - x0)))``."""
+    return L * torch.sigmoid(k * (x - x0))
+
+
+def logistic_unit(x, x0, sgn=1, sc=4):
+    """Logistic window of unit height centred at ``x0``: ``sgn=1``
+    truncates on the right, ``sgn=-1`` on the left; ``sc`` sets the
+    sharpness."""
+    return logistic_function(x, 1.0, -1 * sgn * sc, x0)
+
+
+def log_logistic_unit(x, x0, sgn=1, sc=4):
+    """Log of :func:`logistic_unit`, finite (linear) deep in the truncated
+    tail: ``log sigmoid(t) = t - log1p(exp(t))`` for ``t < 0``."""
+    t = -sgn * sc * (x - x0)
+    neg = t < 0
+    return torch.where(
+        neg,
+        t - torch.log1p(torch.exp(torch.where(neg, t, -t))),
+        -torch.log1p(torch.exp(torch.where(neg, 0.0, -t))),
+    )
+
+
+def powerlaw_logit_pdf(xx, alpha, low=None, high=None, low_fall_off=4.0, high_fall_off=4.0):
+    """Unnormalized powerlaw ``x**alpha`` with soft (logistic) truncations
+    at ``low`` and ``high``."""
+    prob = torch.pow(xx, alpha)
+    if low is not None:
+        prob = prob * logistic_unit(xx, low, sgn=-1.0, sc=low_fall_off)
+    if high is not None:
+        prob = prob * logistic_unit(xx, high, sgn=1.0, sc=high_fall_off)
+    return prob
+
+
+def per_chain(v, ndim):
+    """A ``(C,)`` hyperparameter as ``(C, 1, ...)`` against a bank of
+    ``ndim`` axes; numbers and 0-d tensors are returned as they are."""
+    if isinstance(v, torch.Tensor) and v.ndim == 1:
+        return v.reshape(v.shape + (1,) * ndim)
+    return v
+
+
+def _as_tensor_like(v, like):
+    """A hyperparameter as a tensor in ``like``'s dtype and device (numbers
+    become 0-d tensors, tensors are kept)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
 def _powerlaw_log_norm(alpha, low, high):
     """log of the truncated-powerlaw normalization on ``[low, high]``.
 
@@ -106,6 +165,17 @@ def log_powerlaw_pdf(xx, alpha, low, high, floor=-math.inf):
     return torch.where(oob, floor, logp)
 
 
+def powerlaw_pdf(xx, alpha, low, high, floor=0.0):
+    """pdf of the sharply truncated powerlaw ``x**alpha``, normalized on
+    ``[low, high]`` (``alpha == -1``: the logarithmic normalization);
+    ``floor`` outside."""
+    alpha = _as_tensor_like(alpha, xx)
+    oob = (xx < low) | (xx > high)
+    log_safe_x = torch.log(torch.where(oob, low, xx))
+    prob = torch.exp(alpha * log_safe_x + _powerlaw_log_norm(alpha, low, high))
+    return torch.where(oob, floor, prob)
+
+
 def _norm_cdf(z):
     return 0.5 * (1.0 + torch.special.erf(z / math.sqrt(2.0)))
 
@@ -125,6 +195,15 @@ def log_truncnorm_pdf(xx, mu, sig, low, high, log=False):
     logp = -0.5 * ((u - mu) / sig) ** 2 - torch.log(sig) - _LOG_SQRT_2PI - torch.log(denom) + jac
     oob = (xx > high) | (xx < low)
     return torch.where(oob, -math.inf, logp)
+
+
+def truncnorm_pdf(xx, mu, sig, low, high, log=False):
+    """pdf of a normal truncated to ``[low, high]`` (``log=True``: a
+    truncated lognormal); 0 outside."""
+    mu, sig = _as_tensor_like(mu, xx), _as_tensor_like(sig, xx)
+    safe_x = torch.where(xx <= 0.0, low, xx) if log else xx
+    oob = (xx > high) | (xx < low)
+    return torch.where(oob, 0.0, torch.exp(log_truncnorm_pdf(safe_x, mu, sig, low, high, log=log)))
 
 
 def _betaln(a, b):
@@ -147,3 +226,10 @@ def log_betadist(xx, alpha, beta, scale=1.0, floor=-math.inf):
         - _betaln(alpha, beta)
     )
     return torch.where(inb, ln, floor)
+
+
+def betadist(xx, alpha, beta, scale=1.0, floor=0.0):
+    """pdf of a Beta distribution on ``[0, scale]``; ``floor`` outside."""
+    alpha, beta = _as_tensor_like(alpha, xx), _as_tensor_like(beta, xx)
+    inb = (xx <= scale) & (xx >= 0.0)
+    return torch.where(inb, torch.exp(log_betadist(xx, alpha, beta, scale=scale)), floor)

@@ -1,6 +1,7 @@
-"""B-spline and M-spline bases with cached design matrices.
+"""B-spline and M-spline bases with cached design matrices, the natural
+cubic interpolating spline, and the 2-D tensor-product basis.
 
-Counterpart of ``gwinferno_tpu/interpolation.py`` (the 1-D bases).  Design
+Counterpart of ``gwinferno_tpu/interpolation.py``.  Design
 matrices are built once, at construction, in float64 numpy by the vectorized
 Cox-de Boor ladder and moved to the device once; the sampled hot path is
 only ``project``, a ``(C, K) @ (K, n)`` product of the chains' coefficients
@@ -27,11 +28,13 @@ from .device import resolve_device
 __all__ = [
     "mspline_design_matrix",
     "bspline_design_matrix",
+    "NaturalCubicUnivariateSpline",
     "BasisSpline",
     "BSpline",
     "LogXBSpline",
     "LogYBSpline",
     "LogXLogYBSpline",
+    "RectBivariateBasisSpline",
 ]
 
 _DEGENERATE_KNOT_TOL = 1e-6
@@ -73,6 +76,42 @@ def bspline_design_matrix(xs, knots, order):
     M = mspline_design_matrix(xs, t, order)
     scale = (t[order:] - t[: t.shape[0] - order]) / order
     return M * scale.reshape((-1,) + (1,) * (M.ndim - 1))
+
+
+class NaturalCubicUnivariateSpline:
+    """Natural cubic interpolating spline through ``(x, y)`` (1-D tensors),
+    as scipy's ``CubicSpline(bc_type="natural")``: the second-derivative
+    coefficients solve the tridiagonal system with natural end conditions.
+    ``coefficients`` may be given to skip the solve.  Calls work on any
+    device and shape of points; outside the knots the end pieces
+    extrapolate."""
+
+    def __init__(self, x, y, coefficients=None):
+        x, y = torch.atleast_1d(torch.as_tensor(x)), torch.atleast_1d(torch.as_tensor(y))
+        if coefficients is None:
+            h = torch.diff(x)
+            p = torch.diff(y)
+            one, zero = x.new_ones(1), x.new_zeros(1)
+            main = torch.cat([one, 2.0 * (h[:-1] + h[1:]), one])
+            up = torch.cat([zero, h[1:]])
+            lo = torch.cat([h[:-1], -one])
+            A = torch.diag(main) + torch.diag(up, 1) + torch.diag(lo, -1)
+            rhs = torch.cat([zero, 3.0 * (p[1:] / h[1:] - p[:-1] / h[:-1]), zero])
+            coefficients = torch.linalg.solve(A, rhs)
+        self.k = 3
+        self._x, self._y, self._coefficients = x, y, coefficients
+
+    def __call__(self, x):
+        knots, y, c = self._x, self._y, self._coefficients
+        # jnp.digitize(x, knots): bins[i-1] <= x < bins[i], i.e. right=True
+        ind = torch.clamp(torch.bucketize(x, knots, right=True) - 1, 0, knots.shape[0] - 2)
+        t = x - knots[ind]
+        h = torch.diff(knots)[ind]
+        ci, c1 = c[ind], c[ind + 1]
+        a, a1 = y[ind], y[ind + 1]
+        b = (a1 - a) / h - (2.0 * ci + c1) * h / 3.0
+        d = (c1 - ci) / (3.0 * h)
+        return a + b * t + ci * t**2 + d * t**3
 
 
 def _default_knots(n_df, order, xrange, interior_knots=None):
@@ -253,3 +292,71 @@ class LogXLogYBSpline(LogYBSpline):
         dm = BSpline.bases(self, logxs)
         oob = (logxs < self.xrange[0]) | (logxs > self.xrange[1])
         return np.where(oob, -np.inf, dm)
+
+
+class RectBivariateBasisSpline:
+    """2-D tensor-product basis spline: the surface ``exp(sum_ij c_ij
+    Bx_i(x) By_j(y))``, normalized by a 2-D trapezoid over a 750 x 750 grid.
+
+    ``bases(xs, ys)`` is host float64 ``(xdf, ydf, *xs.shape)``;
+    ``project(bases, coefs)`` takes coefficients ``(C, xdf, ydf)`` and
+    returns ``(C, *xs.shape)``.  The grid's bases, ``(xdf, ydf, 750, 750)``
+    (1.15 GB in float64 at 16 x 16), are built on ``device`` at the first
+    normalization, not at construction.
+    """
+
+    def __init__(self, xdf, ydf, xrange=(0, 1), yrange=(0, 1), kx=4, ky=4, xbasis=BSpline, ybasis=BSpline,
+                 normalize=True, device=None, dtype=torch.float32):
+        self.xdf, self.ydf = xdf, ydf
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        kw = dict(normalize=False, device=self.device, dtype=dtype)
+        self.x_interpolator = xbasis(xdf, xrange=xrange, k=kx, **kw)
+        self.y_interpolator = ybasis(ydf, xrange=yrange, k=ky, **kw)
+        self.normalize = normalize
+        if normalize:
+            self.gridx = np.linspace(*xrange, 750)
+            self.gridy = np.linspace(*yrange, 750)
+            self.gxx, self.gyy = np.meshgrid(self.gridx, self.gridy)
+        self._grid = None
+
+    def bases(self, xs, ys):
+        """Outer-product design tensor (host float64), ``(xdf, ydf, *xs.shape)``."""
+        return np.einsum("i...,j...->ij...", self.x_interpolator.bases(xs), self.y_interpolator.bases(ys))
+
+    def _grid_tensors(self):
+        """The normalization grid and its bases on the device, built once."""
+        if self._grid is None:
+            bx = torch.as_tensor(self.x_interpolator.bases(self.gxx), dtype=self.dtype, device=self.device)
+            by = torch.as_tensor(self.y_interpolator.bases(self.gyy), dtype=self.dtype, device=self.device)
+            self._grid = (
+                torch.einsum("i...,j...->ij...", bx, by),
+                torch.as_tensor(self.gridx, dtype=self.dtype, device=self.device),
+                torch.as_tensor(self.gridy, dtype=self.dtype, device=self.device),
+            )
+        return self._grid
+
+    @property
+    def grid_bases(self):
+        return self._grid_tensors()[0]
+
+    def _project(self, bases, coefs):
+        bases = torch.as_tensor(bases, dtype=coefs.dtype, device=coefs.device)
+        n = self.xdf * self.ydf
+        out = coefs.reshape(coefs.shape[0], n) @ bases.reshape(n, -1)
+        return torch.exp(out.reshape((coefs.shape[0],) + tuple(bases.shape[2:])))
+
+    def norm_2d(self, coefs):
+        """``1 / (2-D trapezoid of the surface over the grid)``: ``(C,)``."""
+        if not self.normalize:
+            return 1.0
+        grid_bases, gx, gy = self._grid_tensors()
+        surface = self._project(grid_bases, coefs)  # (C, y, x)
+        return 1.0 / torch.trapezoid(torch.trapezoid(surface, gy, dim=-2), gx, dim=-1)
+
+    def project(self, bases, coefs):
+        out = self._project(bases, coefs)
+        norm = self.norm_2d(coefs)
+        if isinstance(norm, torch.Tensor):
+            norm = norm.reshape((-1,) + (1,) * (out.ndim - 1))
+        return out * norm

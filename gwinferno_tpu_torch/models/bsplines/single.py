@@ -14,17 +14,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...cosmology import PLANCK_2015_LVK_Cosmology as Planck15
 from ...device import resolve_device
 from ...interpolation import BSpline
+from ...interpolation import LogXBSpline
 from ...interpolation import LogXLogYBSpline
 from ...interpolation import LogYBSpline
+from ...interpolation import _contract
 
 __all__ = [
     "Base1DBSplineModel",
     "BSplineSpinMagnitude",
     "BSplineSpinTilt",
+    "BSplineChiEffective",
+    "BSplineSymmetricChiEffective",
+    "BSplineChiPrecess",
     "BSplineRatio",
     "BSplineMass",
+    "BSplineRedshift",
 ]
 
 
@@ -91,6 +98,35 @@ class BSplineSpinTilt(Base1DBSplineModel):
         super().__init__(n_splines, ct, ct_inj, basis=basis, xrange=xrange, **kwargs)
 
 
+class BSplineChiEffective(Base1DBSplineModel):
+    """chi_eff spline on [-1, 1]."""
+
+    def __init__(self, n_splines, chieff, chieff_inj, basis=BSpline, **kwargs):
+        xrange = kwargs.pop("xrange", (-1.0, 1.0))
+        super().__init__(n_splines, chieff, chieff_inj, basis=basis, xrange=xrange, **kwargs)
+
+
+class BSplineSymmetricChiEffective(Base1DBSplineModel):
+    """Symmetric chi_eff: a spline in |chi_eff| on [0, 1], its density
+    halved."""
+
+    def __init__(self, n_splines, chieff, chieff_inj, basis=BSpline, **kwargs):
+        xrange = kwargs.pop("xrange", (0.0, 1.0))
+        super().__init__(n_splines, np.abs(np.asarray(chieff, dtype=np.float64)),
+                         np.abs(np.asarray(chieff_inj, dtype=np.float64)), basis=basis, xrange=xrange, **kwargs)
+
+    def __call__(self, coefs, pe_samples=True):
+        return 0.5 * self.funcs[1](coefs) if pe_samples else 0.5 * self.funcs[0](coefs)
+
+
+class BSplineChiPrecess(Base1DBSplineModel):
+    """chi_p spline on [0, 1]."""
+
+    def __init__(self, n_splines, chip, chip_inj, basis=BSpline, **kwargs):
+        xrange = kwargs.pop("xrange", (0.0, 1.0))
+        super().__init__(n_splines, chip, chip_inj, basis=basis, xrange=xrange, **kwargs)
+
+
 class BSplineRatio(Base1DBSplineModel):
     """Mass-ratio spline on [qmin, 1]."""
 
@@ -105,3 +141,45 @@ class BSplineMass(Base1DBSplineModel):
     def __init__(self, n_splines, m, m_inj, mmin=2, mmax=100, basis=LogXLogYBSpline, **kwargs):
         xrange = kwargs.pop("xrange", (mmin, mmax))
         super().__init__(n_splines, m, m_inj, basis=basis, xrange=xrange, **kwargs)
+
+
+class BSplineRedshift(Base1DBSplineModel):
+    """Redshift spline defining the rate density ``exp(spline(z)) dVc/dz /
+    (1+z) / normalization``; the normalization is a trapezoid over 1000
+    points of the banks' common redshift range, with the Planck-2015-LVK
+    dVc/dz.  ``dVdc`` and ``dVdc_inj`` are dVc/dz at the PE and injection
+    banks."""
+
+    def __init__(self, n_splines, z, z_inj, dVdc, dVdc_inj, zmax=2.3, basis=LogXBSpline, **kwargs):
+        xrange = kwargs.pop("xrange", (1e-4, zmax))
+        super().__init__(n_splines, z, z_inj, xrange=xrange, basis=basis, **kwargs)
+        dev, dtype = self.pe_design_matrix.device, self.pe_design_matrix.dtype
+        z, z_inj = np.asarray(z, dtype=np.float64), np.asarray(z_inj, dtype=np.float64)
+        self.zmin = max(float(z.min()), float(z_inj.min()))
+        self.zmax = min(float(z.max()), float(z_inj.max()))
+        zgrid = np.linspace(self.zmin, self.zmax, 1000)
+
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=dev)
+
+        self.zgrid = to_dev(zgrid)
+        self.dVcdzgrid = to_dev(Planck15.dVcdz(zgrid))
+        self.grid_bases = to_dev(_finite_design(self.interpolator.bases(zgrid)))
+        self.differential_comov_vols = [to_dev(dVdc_inj), to_dev(dVdc)]
+        self.zs = [to_dev(z_inj), to_dev(z)]
+
+    def normalization(self, cs):
+        """Trapezoid of exp(spline) dVc/dz / (1+z) over the grid: ``(C,)``."""
+        return torch.trapezoid(
+            self.dVcdzgrid / (1.0 + self.zgrid) * torch.exp(_contract(cs, self.grid_bases)), self.zgrid, dim=-1
+        )
+
+    def __call__(self, coefs, pe_samples=True):
+        idx = 1 if pe_samples else 0
+        norm = self.normalization(coefs)
+        return (
+            torch.exp(self.funcs[idx](coefs))
+            * self.differential_comov_vols[idx]
+            / (1.0 + self.zs[idx])
+            / norm.reshape((-1,) + (1,) * self.zs[idx].ndim)
+        )

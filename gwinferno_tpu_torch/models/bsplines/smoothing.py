@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["apply_difference_prior", "prior_precision_cholesky"]
+__all__ = ["apply_difference_prior", "difference_penalty_matrix", "prior_precision_cholesky"]
 
 
 def apply_difference_prior(coefs, inv_var, degree=1):
@@ -18,6 +18,15 @@ def apply_difference_prior(coefs, inv_var, degree=1):
     return -0.5 * inv_var * (delta * delta).sum(-1)
 
 
+def difference_penalty_matrix(n, degree=1):
+    """The penalty matrix ``D^T D`` (host float64 ``(n, n)``), ``D`` the
+    order-``degree`` difference operator on ``n`` coefficients."""
+    D = np.eye(n)
+    for _ in range(degree):
+        D = D[1:] - D[:-1]
+    return D.T @ D
+
+
 def prior_precision_cholesky(n, sig, tau, degree=1, drop_first=False):
     """Lower Cholesky factor ``L`` (host float64) of the coefficient prior's
     precision ``I / sig^2 + tau D^T D``, ``D`` the order-``degree``
@@ -25,10 +34,7 @@ def prior_precision_cholesky(n, sig, tau, degree=1, drop_first=False):
     precision of the free coefficients when the first is pinned to zero.
     The whitened parameterization samples ``u ~ N(0, I)`` and sets
     ``c = L^{-T} u``, which has exactly this prior."""
-    D = np.eye(n)
-    for _ in range(degree):
-        D = D[1:] - D[:-1]
-    P = D.T @ D
+    P = difference_penalty_matrix(n, degree)
     if drop_first:
         P = P[1:, 1:]
     lam = np.eye(P.shape[0]) / float(sig) ** 2 + float(tau) * P

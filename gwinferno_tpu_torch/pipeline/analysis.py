@@ -1,15 +1,14 @@
 """Hierarchical population likelihood with selection-effect correction, and
 the config-driven hierarchical model.
 
-Counterpart of ``gwinferno_tpu/pipeline/analysis.py`` on the log path (the
-weights are log-weights throughout, so float32 never squares a linear
-weight).  The functions keep the JAX package's signatures and defaults,
-``log=False`` included: the linear-weight path is not ported (ROADMAP queue
-1, the M2-M4 remainder) and raises, so a call written for the JAX package
-either gives its answer or raises, and callers pass ``log=True``.  Every
-function takes a leading batch (chain) axis: PE log-weights ``(...,
-N_events, N_samples)``, injection log-weights ``(..., N_found)``.  Both
-reductions go through K1 (:func:`gwinferno_tpu_torch.ops.fused.double_logsumexp`).
+Counterpart of ``gwinferno_tpu/pipeline/analysis.py``.  The functions keep
+the JAX package's signatures and defaults: ``log=False`` takes linear
+weights and reduces them with plain sums, as the JAX package does;
+``log=True`` takes log-weights and reduces both banks with K1
+(:func:`gwinferno_tpu_torch.ops.fused.double_logsumexp`), so float32 never
+squares a linear weight.  Every function takes a leading batch (chain)
+axis: PE weights ``(..., N_events, N_samples)``, injection weights ``(...,
+N_found)``.
 """
 
 from __future__ import annotations
@@ -45,51 +44,64 @@ __all__ = [
 
 NP_KERNEL_MAP = {"NUTS": NUTS, "HMC": HMC}
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, the M2-M4 remainder)"
-
-
-def _log_path_only(log):
-    if not log:
-        raise NotImplementedError(f"the linear-weight path (log=False, the default) is {_NOT_PORTED}; "
-                                  "pass log-weights with log=True")
-
 
 def per_event_log_bayes_factors(weights, log=False):
     """Per-event log Bayes factors by importance sampling over the PE banks
-    of log-weights ``weights`` (``log=True``; the linear path raises).
+    ``weights`` (log-weights with ``log=True``, reduced by K1; linear
+    weights otherwise, reduced by plain sums).
 
     Returns ``(logBFs, log_n_effs, variances)``, each ``(..., N_events)``.
     """
-    _log_path_only(log)
     n_samples = weights.shape[-1]
-    lse1, lse2 = double_logsumexp(weights)
-    logn_effs = 2.0 * lse1 - lse2
-    logBFs = lse1 - math.log(n_samples)
+    if log:
+        lse1, lse2 = double_logsumexp(weights)
+        logn_effs = 2.0 * lse1 - lse2
+        logBFs = lse1 - math.log(n_samples)
+    else:
+        BFs = weights.sum(-1)
+        n_effs = BFs**2 / (weights**2).sum(-1)
+        logBFs = torch.log(BFs / n_samples)
+        logn_effs = torch.log(n_effs)
     variances = torch.exp(-logn_effs) - 1.0 / n_samples
     return logBFs, logn_effs, variances
 
 
 def detection_efficiency(weights, Ninj, log=False):
     """Detection efficiency mu by importance sampling over the found
-    injections (``Ninj`` generated) with log-weights ``weights`` (``log=True``;
-    the linear path raises), with its MC effective sample size.
+    injections (``Ninj`` generated) with weights ``weights`` (log-weights
+    with ``log=True``), with its MC effective sample size.
 
-    The estimator's variance ``sum(w^2)/Ninj^2 - mu^2/Ninj`` is evaluated in
-    shifted log space.  Returns ``(log_mu, log_n_eff, variance)``, each of the
-    batch shape.
+    The estimator's variance is ``sum(w^2)/Ninj^2 - mu^2/Ninj``; on the log
+    path it is evaluated in shifted log space.  Returns ``(log_mu,
+    log_n_eff, variance)``, each of the batch shape.
     """
-    _log_path_only(log)
-    log_ninj = math.log(Ninj)
-    lse1, lse2 = double_logsumexp(weights)
-    logmu = lse1 - log_ninj
-    # var = e^A - e^B with A = log(sum w^2 / Ninj^2), B = log(mu^2 / Ninj);
-    # B - A = log(n_eff_raw / Ninj) < 0 since n_eff_raw <= N_found < Ninj
-    A = lse2 - 2.0 * log_ninj
-    B = 2.0 * logmu - log_ninj
-    logvar = A + torch.log1p(-torch.exp(torch.clamp_max(B - A, -1e-6)))
-    logn_eff = 2.0 * logmu - logvar
+    if log:
+        log_ninj = math.log(Ninj)
+        lse1, lse2 = double_logsumexp(weights)
+        logmu = lse1 - log_ninj
+        # var = e^A - e^B with A = log(sum w^2 / Ninj^2), B = log(mu^2 / Ninj);
+        # B - A = log(n_eff_raw / Ninj) < 0 since n_eff_raw <= N_found < Ninj
+        A = lse2 - 2.0 * log_ninj
+        B = 2.0 * logmu - log_ninj
+        logvar = A + torch.log1p(-torch.exp(torch.clamp_max(B - A, -1e-6)))
+        logn_eff = 2.0 * logmu - logvar
+    else:
+        mu = weights.sum(-1) / Ninj
+        var = (weights**2).sum(-1) / Ninj**2 - mu**2 / Ninj
+        logmu = torch.log(mu)
+        logn_eff = 2.0 * logmu - torch.log(var)
     variance = torch.exp(-logn_eff) - 1.0 / Ninj
     return logmu, logn_eff, variance
+
+
+def _subpopulation_draws(Nobs, pop_frac, rngkey):
+    """The categorical subpopulation of each event, ``Qs`` ``(Nobs,)``,
+    drawn under ``plate("nObs")`` from ``rngkey`` (the same draws in every
+    run of the model); ``pop_frac`` is put on the key's device."""
+    device = rngkey.device if isinstance(rngkey, torch.Generator) else "cpu"
+    probs = torch.as_tensor(pop_frac, dtype=torch.float64, device=device)
+    with ppl.plate("nObs", Nobs):
+        return ppl.sample("Qs", dist.Categorical(probs=probs), rng_key=rngkey)
 
 
 def hierarchical_likelihood(
@@ -124,18 +136,21 @@ def hierarchical_likelihood(
     diagnostic sites, added to the model as the ``log_likelihood`` factor.
 
     ``pe_weights`` ``(C, N_events, N_samples)`` and ``inj_weights``
-    ``(C, N_found)`` are log-weights, passed with ``log=True``.  Returns the
-    reconstructed ``rate`` ``(C,)`` or None.
+    ``(C, N_found)`` are linear weights (the default) or log-weights with
+    ``log=True``.  Returns the reconstructed ``rate`` ``(C,)`` or None.
+
+    Categorical subpopulations (``categorical``): ``pe_weights`` is a pair
+    of banks, one per subpopulation; each event's subpopulation ``Qs`` is
+    drawn once per call, under ``plate("nObs")``, from ``Categorical(
+    pop_frac)`` with the key ``rngkey`` (an int or a ``torch.Generator``),
+    so every run of the model draws the same ``Qs``; a substituted ``Qs``
+    may carry a chain axis, ``(C, Nobs)``.
 
     Summaries seam: ``pe_summaries=(logBFs, log_n_effs, n_samples)`` and
     ``inj_summaries=(log_mu, log_n_eff_inj)`` take reductions computed
     upstream (the streamed op, ``ops/streamed.py``, or K3 through
     ``FusedBSplineLikelihood``) in place of the weight banks, which may then
-    be None.  The linear path (``log=False``, the JAX package's default, with
-    weight banks), categorical subpopulations (``categorical``,
-    ``pop_frac``, ``rngkey``) and the posterior-predictive options
-    ``marginal_qs`` and ``indv_weights`` are not ported: each raises
-    ``NotImplementedError`` when asked for.
+    be None.
 
     ``posterior_predictive_check`` with ``param_names``, ``pedata`` and
     ``injdata`` adds the sites ``{p}_obs_event_{i}`` and
@@ -144,7 +159,11 @@ def hierarchical_likelihood(
     (:class:`~gwinferno_tpu_torch.ppl.handlers.collect_deterministic`, as
     ``MCMC.get_deterministic`` runs the model): the density does not depend
     on them, so a potential's gradient never draws them, as the JAX
-    package's compiled gradient drops them.
+    package's compiled gradient drops them.  ``marginal_qs`` adds, for
+    each subpopulation ``i`` of ``indv_weights`` (linear weights ``(...,
+    N_events, N_samples)``), ``cat_frac_subpop_{i+1}_event_{ev}``: its
+    weight over the bank's at the observed draw (with ``log=True`` the bank's
+    weights there are ``exp(logw - max)`` per event, as in the JAX package).
     """
     if max_variance_cut and (marginalize_selection or min_neff_cut):
         raise ValueError(
@@ -157,15 +176,12 @@ def hierarchical_likelihood(
         raise ValueError("pe_summaries (the fused seam) cannot be combined with categorical subpopulations")
     if (pe_summaries is not None or inj_summaries is not None) and posterior_predictive_check:
         raise ValueError("posterior_predictive_check needs the raw weight banks; disable it on the fused path")
-    given = {"categorical": categorical, "marginal_qs": marginal_qs, "indv_weights": indv_weights is not None,
-             "rngkey": rngkey is not None, "pop_frac": pop_frac is not None}
-    for name, on in given.items():
-        if on:
-            raise NotImplementedError(f"{name} is {_NOT_PORTED}")
-    if pe_summaries is None or inj_summaries is None:
-        _log_path_only(log)
 
-    if pe_summaries is not None:
+    if categorical:
+        Qs = _subpopulation_draws(Nobs, pop_frac, rngkey)[..., None].to(pe_weights[0].device)
+        mix_pe_weights = torch.where(Qs == 0, pe_weights[0], pe_weights[1])
+        logBFs, logn_effs, variances = per_event_log_bayes_factors(mix_pe_weights, log=log)
+    elif pe_summaries is not None:
         logBFs, logn_effs, n_samples = pe_summaries
         variances = torch.exp(-logn_effs) - 1.0 / n_samples
     else:
@@ -211,10 +227,13 @@ def hierarchical_likelihood(
 
     if posterior_predictive_check and param_names is not None and injdata is not None and pedata is not None:
         n_events = pe_weights.shape[-2]
-        names = (f"{p}_{kind}_event_{ev}" for ev in range(n_events) for p in param_names for kind in ("obs", "pred"))
+        names = [f"{p}_{kind}_event_{ev}" for ev in range(n_events) for p in param_names for kind in ("obs", "pred")]
+        if marginal_qs:
+            names += [f"cat_frac_subpop_{i + 1}_event_{ev}" for ev in range(n_events) for i in range(len(indv_weights))]
         if ppl.deterministic_requested(names):
             _posterior_predictive_sites(pe_weights, inj_weights, pedata, injdata, param_names,
-                                        m1min=m1min, m2min=m2min, mmax=mmax)
+                                        m1min=m1min, m2min=m2min, mmax=mmax, marginal_qs=marginal_qs,
+                                        indv_weights=indv_weights, log=log)
     return rate
 
 
@@ -227,22 +246,23 @@ def _event_uniforms(n_events):
                         for ev in range(n_events)])
 
 
-def _choice(log_weights, mask, u):
-    """Inverse-cdf draws from the rows of ``log_weights`` ``(..., N)`` (zero
-    weight where ``mask``): for each uniform of ``u`` (broadcast against the
-    rows' batch shape on a new last axis), the first index whose cumulative
-    weight reaches ``total * (1 - u)``, as ``jax.random.choice`` with ``p``
-    does.  Returns ``(..., M)`` indices."""
-    w = torch.exp(log_weights - log_weights.amax(-1, keepdim=True))
+def _choice(w, mask, u):
+    """Inverse-cdf draws from the rows of the weights ``w`` ``(..., N)``
+    (zero weight where ``mask``): for each uniform of ``u`` (broadcast
+    against the rows' batch shape on a new last axis), the first index whose
+    cumulative weight reaches ``total * (1 - u)``, as ``jax.random.choice``
+    with ``p`` does.  Returns ``(..., M)`` indices."""
     cum = torch.cumsum(torch.where(mask, 0.0, w), dim=-1)
     r = cum[..., -1:] * (1.0 - u)
     return torch.searchsorted(cum, r.contiguous()).clamp_max(cum.shape[-1] - 1)
 
 
 def _posterior_predictive_sites(pe_weights, inj_weights, pedata, injdata, param_names, m1min=5.0, m2min=3.0,
-                                mmax=100.0):
+                                mmax=100.0, marginal_qs=False, indv_weights=None, log=True):
     """Reweighted observed and predicted draws per event, as deterministic
-    sites ``{p}_obs_event_{i}`` and ``{p}_pred_event_{i}`` (each ``(C,)``).
+    sites ``{p}_obs_event_{i}`` and ``{p}_pred_event_{i}`` (each ``(C,)``),
+    from log-weights (``log=True``, shifted by each bank's maximum before the
+    ``exp``) or linear weights.
 
     For event ``i`` the observed draw picks one of its PE samples with
     probability proportional to its weight, the predicted draw one found
@@ -250,18 +270,31 @@ def _posterior_predictive_sites(pe_weights, inj_weights, pedata, injdata, param_
     with ``mass_1`` outside ``[m1min, mmax]`` or ``mass_1 * mass_ratio <
     m2min`` weigh 0.  Event ``i``'s two uniforms are fixed
     (:func:`_event_uniforms`), so the draws are deterministic given the
-    weights, as the JAX package's fixed ``PRNGKey(i)`` makes them.
+    weights, as the JAX package's fixed ``PRNGKey(i)`` makes them.  With
+    ``marginal_qs``, ``cat_frac_subpop_{j+1}_event_{i}`` is
+    ``indv_weights[j]`` over the bank's weight at event ``i``'s observed
+    draw.
     """
 
     def masked(d):
         m1 = d["mass_1"]
         return (m1 < m1min) | (m1 > mmax) | (m1 * d["mass_ratio"] < m2min)
 
+    if log:
+        pe_weights = torch.exp(pe_weights - pe_weights.amax(-1, keepdim=True))
+        inj_weights = torch.exp(inj_weights - inj_weights.amax(-1, keepdim=True))
     n_events = pe_weights.shape[-2]
     u = _event_uniforms(n_events).to(pe_weights.device, pe_weights.dtype)
     obs_idx = _choice(pe_weights, masked(pedata), u[:, :1])[..., 0]  # (C, E)
     pred_idx = _choice(inj_weights, masked(injdata), u[:, 1])  # (C, E)
     events = torch.arange(n_events, device=obs_idx.device)
+    if marginal_qs:
+        at_obs = torch.gather(pe_weights, -1, obs_idx[..., None])[..., 0]
+        for i, w in enumerate(indv_weights):
+            w = torch.as_tensor(w, dtype=pe_weights.dtype, device=pe_weights.device).expand(pe_weights.shape)
+            frac = torch.gather(w, -1, obs_idx[..., None])[..., 0] / at_obs
+            for ev in range(n_events):
+                ppl.deterministic(f"cat_frac_subpop_{i + 1}_event_{ev}", frac[..., ev])
     for p in param_names:
         obs, pred = pedata[p][events, obs_idx], injdata[p][pred_idx]
         for ev in range(n_events):

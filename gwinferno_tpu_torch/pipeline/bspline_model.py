@@ -35,10 +35,18 @@ from .utils import setup_bspline_mass_models
 from .utils import setup_bspline_spin_models
 from .utils import setup_powerlaw_spline_redshift_model
 
-__all__ = ["BSplineModel", "run_bspline_analysis", "build_bspline_models", "model_from_args", "COEF_SITES"]
+__all__ = ["BSplineModel", "run_bspline_analysis", "build_bspline_models", "model_from_args", "bank_log_weights",
+           "COEF_SITES"]
 
 # the coefficient blocks, which are deterministic sites under reparam="whitened"
 COEF_SITES = ("mass_cs", "q_cs", "a_cs", "tilt_cs", "z_cs", "a1_cs", "a2_cs", "tilt1_cs", "tilt2_cs")
+
+
+def bank_log_weights(factors, log_prior):
+    """Per-sample log-weights of one bank: the factors' pdfs summed in log
+    space over the bank's sampling prior, NaN (an empty support) to -inf."""
+    logw = sum(safe_log(f) for f in factors) - log_prior
+    return torch.where(torch.isnan(logw), -torch.inf, logw)
 
 
 class BSplineModel(torch.nn.Module):
@@ -79,14 +87,9 @@ class BSplineModel(torch.nn.Module):
         injections."""
         z = self.pe_redshift if pe_samples else self.inj_redshift
         log_prior = self.pe_log_prior if pe_samples else self.inj_log_prior
-        logw = (
-            safe_log(self.mass_models(mass_cs, q_cs, pe_samples=pe_samples))
-            + safe_log(self.mag_model(a_cs, pe_samples=pe_samples))
-            + safe_log(self.tilt_model(tilt_cs, pe_samples=pe_samples))
-            + safe_log(self.z_model(z, lamb, z_cs))
-            - log_prior
-        )
-        return torch.where(torch.isnan(logw), -torch.inf, logw)
+        factors = (self.mass_models(mass_cs, q_cs, pe_samples=pe_samples), self.mag_model(a_cs, pe_samples=pe_samples),
+                   self.tilt_model(tilt_cs, pe_samples=pe_samples), self.z_model(z, lamb, z_cs))
+        return bank_log_weights(factors, log_prior)
 
     def forward(self):
         t = self.taus

@@ -100,19 +100,19 @@ def setup_bspline_mass_models(pedict, injdict, nsplines_m, nsplines_q, mmin, mma
 
 
 def setup_bspline_spin_models(pedict, injdict, nsplines_mag, nsplines_tilt, iid=True, device=None, dtype=torch.float32):
-    """IID B-spline spin magnitude and tilt models (the independent pair is
-    not ported)."""
-    from ..models.bsplines.separable import BSplineIIDSpinMagnitudes
-    from ..models.bsplines.separable import BSplineIIDSpinTilts
+    """B-spline spin magnitude and tilt models: the IID pairs (shared
+    coefficients), or with ``iid=False`` the independent pairs (one set of
+    coefficients per component, ``nsplines_mag`` / ``nsplines_tilt`` each)."""
+    from ..models.bsplines import separable
 
-    if not iid:
-        raise NotImplementedError("the independent (non-IID) B-spline spin models are not ported")
     kw = dict(device=device, dtype=dtype)
-    mag = BSplineIIDSpinMagnitudes(nsplines_mag, pedict["a_1"], pedict["a_2"], injdict["a_1"], injdict["a_2"], **kw)
-    tilt = BSplineIIDSpinTilts(
-        nsplines_tilt, pedict["cos_tilt_1"], pedict["cos_tilt_2"], injdict["cos_tilt_1"], injdict["cos_tilt_2"], **kw
-    )
-    return mag, tilt
+    a = (pedict["a_1"], pedict["a_2"], injdict["a_1"], injdict["a_2"])
+    ct = (pedict["cos_tilt_1"], pedict["cos_tilt_2"], injdict["cos_tilt_1"], injdict["cos_tilt_2"])
+    if iid:
+        return (separable.BSplineIIDSpinMagnitudes(nsplines_mag, *a, **kw),
+                separable.BSplineIIDSpinTilts(nsplines_tilt, *ct, **kw))
+    return (separable.BSplineIndependentSpinMagnitudes(nsplines_mag, nsplines_mag, *a, **kw),
+            separable.BSplineIndependentSpinTilts(nsplines_tilt, nsplines_tilt, *ct, **kw))
 
 
 def setup_powerlaw_spline_redshift_model(pedict, injdict, nsplines_z, device=None, dtype=torch.float32):

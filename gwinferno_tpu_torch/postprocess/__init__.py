@@ -1,1 +1,1 @@
-"""Post-processing: plots of a run."""
+"""Post-processing: the posterior-predictive distributions and plots of a run."""

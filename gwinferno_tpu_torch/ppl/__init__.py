@@ -18,8 +18,10 @@ from .handlers import substitute
 from .handlers import trace
 from .infer_util import ModelPotential
 from .infer_util import constrain_fn
+from .infer_util import init_to_uniform
 from .infer_util import log_density
 from .infer_util import potential_energy
+from .infer_util import transform_fn
 from .infer_util import unconstrain_fn
 from .primitives import deterministic
 from .primitives import factor
@@ -44,4 +46,6 @@ __all__ = [
     "potential_energy",
     "unconstrain_fn",
     "constrain_fn",
+    "transform_fn",
+    "init_to_uniform",
 ]

@@ -23,6 +23,8 @@ __all__ = [
     "potential_energy",
     "unconstrain_fn",
     "constrain_fn",
+    "transform_fn",
+    "init_to_uniform",
     "find_valid_initial_params",
 ]
 
@@ -45,10 +47,16 @@ def _num_chains(params):
     return 1
 
 
-def _joint(tr, num_chains):
+def _drawn_with_key(site, params):
+    """A site drawn from its own key (``sample(..., rng_key=...)``), neither
+    observed nor given a value: it adds no density, as in the JAX package."""
+    return site.get("explicit_rng", False) and not site["is_observed"] and site["name"] not in params
+
+
+def _joint(tr, num_chains, params):
     total = 0.0
     for name, site in tr.items():
-        if site["type"] == "sample":
+        if site["type"] == "sample" and not _drawn_with_key(site, params):
             total = total + _chain_sum(name, site["fn"].log_prob(site["value"]), num_chains)
     return total
 
@@ -59,7 +67,7 @@ def log_density(model, model_args=(), model_kwargs=None, params=None):
     params = params or {}
     with handlers.trace() as tr, handlers.substitute(data=params):
         model(*model_args, **(model_kwargs or {}))
-    return _joint(tr.trace, _num_chains(params)), tr.trace
+    return _joint(tr.trace, _num_chains(params), params), tr.trace
 
 
 def potential_energy(model, model_args=(), model_kwargs=None, params=None):
@@ -82,7 +90,7 @@ def potential_energy(model, model_args=(), model_kwargs=None, params=None):
 
     with handlers.trace() as tr, handlers.substitute(substitute_fn=substitute_fn):
         model(*model_args, **(model_kwargs or {}))
-    return -(_joint(tr.trace, num_chains) + sum(jac))
+    return -(_joint(tr.trace, num_chains, params) + sum(jac))
 
 
 def _site_transforms(model, model_args, model_kwargs, params, constrained):
@@ -100,7 +108,7 @@ def _site_transforms(model, model_args, model_kwargs, params, constrained):
     return {
         name: biject_to(site["fn"].support)
         for name, site in tr.trace.items()
-        if site["type"] == "sample" and not site["is_observed"]
+        if site["type"] == "sample" and not site["is_observed"] and not _drawn_with_key(site, params)
     }
 
 
@@ -116,6 +124,28 @@ def constrain_fn(model, model_args=(), model_kwargs=None, params=None):
     return {k: transforms[k](v) if k in transforms else v for k, v in params.items()}
 
 
+def transform_fn(transforms, params, invert=False):
+    """Apply ``transforms`` (``{site: bijector}``) to ``params``, or their
+    inverses with ``invert``; sites without a transform pass through."""
+    out = {}
+    for k, v in params.items():
+        t = transforms.get(k)
+        out[k] = v if t is None else (t.inv(v) if invert else t(v))
+    return out
+
+
+def init_to_uniform(radius=2.0):
+    """Init strategy: ``init(generator, shape, dtype=None)`` draws uniformly
+    in ``(-radius, radius)`` in unconstrained space from ``generator``, on
+    its device."""
+
+    def init(generator, shape, dtype=None):
+        u = torch.rand(shape, generator=generator, device=generator.device, dtype=dtype or torch.get_default_dtype())
+        return (2.0 * u - 1.0) * radius
+
+    return init
+
+
 class ModelPotential:
     """The potential energy of ``model`` as a function of flat unconstrained
     points ``z`` of shape ``(C, D)``.
@@ -126,7 +156,9 @@ class ModelPotential:
     shape than its values (a simplex of K values has K - 1): ``shapes`` holds
     the constrained shapes, ``unconstrained_shapes`` the ones ``z`` is cut
     into.  Sites are flattened in sorted name order.  A discrete latent site
-    raises, as it does in the JAX package's engine.
+    raises, as it does in the JAX package's engine, unless it is drawn from
+    its own key (``sample(..., rng_key=...)``): such a site is not a latent
+    coordinate and adds no density.
     """
 
     def __init__(self, model, model_args=(), model_kwargs=None, device=None, dtype=torch.float32):
@@ -135,7 +167,7 @@ class ModelPotential:
         self.dtype = dtype
 
         def probe(msg):
-            if msg["is_observed"]:
+            if msg["is_observed"] or msg.get("explicit_rng"):
                 return None
             support = msg["fn"].support
             if support.is_discrete:
@@ -150,7 +182,8 @@ class ModelPotential:
         with torch.no_grad(), handlers.trace() as tr, handlers.substitute(substitute_fn=probe):
             model(*self.model_args, **self.model_kwargs)
         latent = {
-            name: site for name, site in tr.trace.items() if site["type"] == "sample" and not site["is_observed"]
+            name: site for name, site in tr.trace.items()
+            if site["type"] == "sample" and not site["is_observed"] and not site.get("explicit_rng")
         }
         self.names = sorted(latent)
         self.shapes = {k: tuple(latent[k]["value"].shape[1:]) for k in self.names}

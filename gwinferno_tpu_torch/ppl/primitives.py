@@ -2,7 +2,8 @@
 
 Counterpart of ``gwinferno_tpu/ppl/primitives.py``.  Effectful
 interpretation happens through a handler stack; with no handler active a
-latent ``sample`` site has no value and raises.
+latent ``sample`` site has no value and raises, unless it carries its own
+``rng_key``.
 """
 
 from __future__ import annotations
@@ -57,20 +58,65 @@ def _plate_sample_shape(msg):
     return (int(size),)
 
 
-def sample(name, fn, obs=None, sample_shape=()):
+def _event_ndim(fn):
+    ev = getattr(fn, "event_shape", None) or ()
+    return int(getattr(fn, "event_ndim", len(ev)))
+
+
+def _validate_plate_shape(msg):
+    """Raise when a site's value lacks the plate's size at the plate's dim,
+    counted from the value's right (so a leading chain axis passes: ``(C,
+    N)`` and ``(N,)`` both carry ``N`` at dim -1)."""
+    frames = msg.get("cond_indep_stack") or []
+    if not frames or msg["value"] is None:
+        return
+    _, size, dim = frames[-1]
+    shape = tuple(torch.as_tensor(msg["value"]).shape)
+    batch_event = len(shape) - _event_ndim(msg["fn"]) if msg["fn"] is not None else len(shape)
+    axis = batch_event + dim
+    if axis < 0 or axis >= len(shape) or shape[axis] != size:
+        raise ValueError(
+            f"site '{msg['name']}' inside plate(size={size}, dim={dim}) has value "
+            f"shape {shape}: expected size {size} at batch axis {dim}"
+        )
+
+
+def _key_generator(rng_key):
+    """A new generator for a site's own key: an int seeds a new CPU
+    generator; a generator is copied (same device, same state), so the
+    caller's is never advanced.  A key is a value, as a JAX key is: every
+    run of the model draws the same values from it."""
+    if isinstance(rng_key, torch.Generator):
+        g = torch.Generator(device=rng_key.device)
+        g.set_state(rng_key.get_state())
+        return g
+    if isinstance(rng_key, int) and not isinstance(rng_key, bool):
+        return torch.Generator().manual_seed(rng_key)
+    raise TypeError(f"rng_key must be an int or a torch.Generator, got {type(rng_key).__name__}")
+
+
+def sample(name, fn, obs=None, rng_key=None, sample_shape=()):
     """Declare a random variable ``name`` distributed as ``fn``; ``obs``
-    marks it observed (its density counts, its value is fixed)."""
+    marks it observed (its density counts, its value is fixed).
+
+    ``rng_key`` (an int seed or a ``torch.Generator``) draws the site from
+    its own key at once, as the JAX package's explicit key does: the draw
+    is the same in every run of the model and the caller's generator is
+    not advanced.  Such a site is marked ``explicit_rng``; unless observed
+    or given a value, it adds no density (the potential skips it)."""
     msg = {
         "type": "sample",
         "name": name,
         "fn": fn,
         "value": obs,
         "is_observed": obs is not None,
-        "generator": None,
+        "generator": None if rng_key is None else _key_generator(rng_key),
+        "explicit_rng": rng_key is not None,
         "sample_shape": tuple(sample_shape),
         "cond_indep_stack": list(_PLATE_STACK),
     }
     apply_stack(msg)
+    _validate_plate_shape(msg)
     return msg["value"]
 
 
@@ -107,7 +153,9 @@ def factor(name, log_factor):
 
 class plate:
     """Conditionally independent batch context, ``with plate("n", N) as idx``:
-    yields ``arange(N)``; a drawn site inside gets one iid copy per element."""
+    yields ``arange(N)``; a drawn site inside gets one iid copy per element,
+    and every site's value must carry ``N`` at the plate's dim (else
+    ``ValueError``)."""
 
     def __init__(self, name, size, dim=None):
         self.name, self.size, self.dim = name, size, dim if dim is not None else -1

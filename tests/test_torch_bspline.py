@@ -364,8 +364,10 @@ def test_hierarchical_likelihood_takes_the_bspline_kwargs():
         analysis.hierarchical_likelihood(pe, inj, param_names=["mass_1"], pedata={}, injdata={}, m1min=3.0, m2min=3.0,
                                          mmax=100.0, log=True, **kw)
     assert torch.equal(plain.trace["log_l"]["value"], extra.trace["log_l"]["value"])
-    with pytest.raises(NotImplementedError, match="log=False"), ppl.trace():
-        analysis.hierarchical_likelihood(pe, inj, log=False, **kw)
+    # the linear path on the weights themselves gives the same likelihood
+    with ppl.trace() as linear, ppl.substitute(data=rates):
+        analysis.hierarchical_likelihood(torch.exp(pe), torch.exp(inj), log=False, **kw)
+    torch.testing.assert_close(linear.trace["log_l"]["value"], plain.trace["log_l"]["value"], rtol=1e-10, atol=0.0)
 
 
 def test_get_deterministic_recomputes_the_coefficients(problem, capsys):

@@ -152,6 +152,18 @@ def test_the_module_walk_covers_the_engines():
     assert engines | {os.path.join("utils", "checkpoint.py")} <= walked
 
 
+def test_the_module_walk_covers_the_model_library():
+    """The import checks above walk the model library and the
+    posterior-predictive calculations too."""
+    walked = {os.path.relpath(p, PKG) for p in _port_files()}
+    library = {"cosmology.py", "distributions.py", "interpolation.py", os.path.join("models", "spline_perturbation.py"),
+               os.path.join("postprocess", "calculations.py"), os.path.join("pipeline", "analysis.py")}
+    library |= {os.path.join("models", "bsplines", n) for n in ("single.py", "separable.py", "smoothing.py")}
+    library |= {os.path.join("models", "parametric", "parametric.py"), os.path.join("ppl", "infer_util.py"),
+                os.path.join("ppl", "primitives.py")}
+    assert library <= walked
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     from gwinferno_tpu_torch.device import resolve_device
 
@@ -193,6 +205,44 @@ def test_entry_points_default_to_cuda(monkeypatch):
         run_config(reader, bank, {k: v[0] for k, v in bank.items()}, {"total_inj": 10.0, "nObs": 2, "obs_time": 1.0})
     with pytest.raises(RuntimeError, match="CUDA"):
         MCMC(NUTS(model_from_reader(reader)))
+    # the model library and the posterior-predictive calculations
+    from gwinferno_tpu_torch.interpolation import RectBivariateBasisSpline
+    from gwinferno_tpu_torch.models.bsplines import separable, single
+    from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryPowerlawRatio
+    from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryRatio
+    from gwinferno_tpu_torch.pipeline.utils import setup_bspline_spin_models
+    from gwinferno_tpu_torch.postprocess import calculations
+
+    x, x_inj = np.full((2, 3), 0.5), np.full(4, 0.5)
+    m, m_inj = np.full((2, 3), 20.0), np.full(4, 20.0)
+    builders = [
+        lambda: single.BSplineRedshift(6, x, x_inj, x, x_inj),
+        lambda: single.BSplineChiEffective(6, x, x_inj),
+        lambda: single.BSplineSymmetricChiEffective(6, x, x_inj),
+        lambda: single.BSplineChiPrecess(6, x, x_inj),
+        lambda: separable.BSplineIndependentSpinMagnitudes(6, 6, x, x, x_inj, x_inj),
+        lambda: separable.BSplineIndependentSpinTilts(6, 6, x, x, x_inj, x_inj),
+        lambda: separable.BSplinePrimaryPowerlawRatio(6, m, m_inj),
+        lambda: separable.PLPeakPrimaryBSplineRatio(6, x, x_inj),
+        lambda: separable.BSplineIIDComponentMasses(6, m, m, m_inj, m_inj),
+        lambda: separable.BSplineIndependentComponentMasses(6, 6, m, m, m_inj, m_inj),
+        lambda: separable.BSplineEffectiveSpinDims(6, 6, x, x, x_inj, x_inj),
+        lambda: PowerlawBasisSplinePrimaryPowerlawRatio(6, m, m_inj),
+        lambda: PowerlawBasisSplinePrimaryRatio(6, 6, m, x, m_inj, x_inj),
+        lambda: RectBivariateBasisSpline(5, 5),
+        lambda: setup_bspline_spin_models({k: x for k in ("a_1", "a_2", "cos_tilt_1", "cos_tilt_2")},
+                                          {k: x_inj for k in ("a_1", "a_2", "cos_tilt_1", "cos_tilt_2")}, 6, 6, iid=False),
+        lambda: calculations.calculate_bspline_mass_ppds(np.zeros((1, 6)), np.zeros((1, 6)), {"m1": 6, "q": 6}, 3.0, 100.0),
+        lambda: calculations.calculate_powerlaw_peak_mass_ppds(*np.ones((5, 1)), 3.0, 100.0),
+        lambda: calculations.calculate_peak_logm1_bspline_q_ppds(np.ones(1), np.ones(1), np.zeros((1, 6)), {"q": 6}, 3.0,
+                                                                 100.0),
+        lambda: calculations.calculate_beta_spin_mag(np.ones(1), np.ones(1)),
+        lambda: calculations.calculate_mixture_iso_aligned_spin_tilt(np.ones(1), np.ones(1)),
+        lambda: calculations.calculate_bspline_spin_ppds(np.zeros((1, 6)), np.zeros((1, 6)), {"a": 6, "tilt": 6}),
+    ]
+    for build in builders:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
 
 
 def test_double_logsumexp_on_cpu_uses_the_plain_version(monkeypatch):

@@ -166,20 +166,26 @@ F5_KW = dict(total_inj=2e4, Nobs=5, Tobs=1.0, surveyed_hypervolume=1.0, reconstr
 
 
 def test_reference_style_linear_call_raises_and_the_log_call_matches():
-    """A call written for the JAX package (linear weights, no ``log=``) raises
-    in the port; the same call on the weights' logs with ``log=True`` gives
-    the JAX package's ``log_l`` on the linear weights."""
+    """A call written for the JAX package (linear weights, no ``log=``) gives
+    the JAX package's ``log_l`` (36.62) and detection efficiency (0.00082),
+    and so do the two helpers on the linear path; the same call on the
+    weights' logs with ``log=True`` gives them too.  (Until the linear path
+    was ported, the linear call raised.)"""
     pe, inj = _linear_reproduction()
     with jppl.trace() as jtr:
         janalysis.hierarchical_likelihood(jnp.asarray(pe), jnp.asarray(inj), **F5_KW)
     want = float(jtr.trace["log_l"]["value"])
     assert abs(want - 36.62) < 0.01 and abs(float(jtr.trace["detection_efficiency"]["value"]) - 0.00082) < 1e-5
-    with pytest.raises(NotImplementedError, match="M2-M4 remainder"), ppl.trace():
+    with ppl.trace() as lin:
         analysis.hierarchical_likelihood(torch.tensor(pe)[None], torch.tensor(inj)[None], **F5_KW)
-    for fn, args in ((analysis.per_event_log_bayes_factors, (torch.tensor(pe),)),
-                     (analysis.detection_efficiency, (torch.tensor(inj), 2e4))):
-        with pytest.raises(NotImplementedError, match="M2-M4 remainder"):
-            fn(*args)
+    for name in ("log_l", "detection_efficiency", "logBFs", "log_nEffs", "log_nEff_inj", "variance_log_likelihood"):
+        np.testing.assert_allclose(lin.trace[name]["value"][0].numpy(), np.asarray(jtr.trace[name]["value"]),
+                                   rtol=1e-10, err_msg=name)
+    for fn, jfn, args in ((analysis.per_event_log_bayes_factors, janalysis.per_event_log_bayes_factors, (pe,)),
+                          (analysis.detection_efficiency, janalysis.detection_efficiency, (inj, 2e4))):
+        got = fn(torch.tensor(args[0]), *args[1:])
+        for g, w in zip(got, jfn(jnp.asarray(args[0]), *args[1:])):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10)
     with ppl.trace() as tr:
         analysis.hierarchical_likelihood(torch.tensor(np.log(pe))[None], torch.tensor(np.log(inj))[None], log=True, **F5_KW)
     np.testing.assert_allclose(float(tr.trace["log_l"]["value"][0]), want, rtol=1e-12)
@@ -187,14 +193,29 @@ def test_reference_style_linear_call_raises_and_the_log_call_matches():
                                float(jtr.trace["detection_efficiency"]["value"]), rtol=1e-12)
 
 
-@pytest.mark.parametrize("option", [dict(categorical=True), dict(marginal_qs=True), dict(indv_weights=np.ones(3)),
-                                    dict(rngkey=0), dict(pop_frac=[0.5, 0.5])],
+@pytest.mark.parametrize("option", [dict(categorical=True, pop_frac=[1.0, 0.0], rngkey=3),
+                                    dict(marginal_qs=True, indv_weights=[np.ones((5, 400))]),
+                                    dict(indv_weights=np.ones(3)), dict(rngkey=0), dict(pop_frac=[0.5, 0.5])],
                          ids=["categorical", "marginal_qs", "indv_weights", "rngkey", "pop_frac"])
 def test_unported_likelihood_options_raise(option):
+    """Each option the port once raised on is taken and gives the JAX
+    package's likelihood: categorical subpopulations (a pair of banks, all
+    events in the first), and the options that matter only with another
+    (the posterior-predictive ``marginal_qs`` and ``indv_weights``, the
+    categorical ``rngkey`` and ``pop_frac``)."""
     pe, inj = _linear_reproduction()
-    with pytest.raises(NotImplementedError, match=f"{next(iter(option))} is not ported yet.*M2-M4 remainder"), ppl.trace():
-        analysis.hierarchical_likelihood(torch.tensor(np.log(pe))[None], torch.tensor(np.log(inj))[None], log=True,
-                                         **option, **F5_KW)
+    pe_t, inj_t = torch.tensor(np.log(pe))[None], torch.tensor(np.log(inj))[None]
+    jpe = jnp.log(jnp.asarray(pe))
+    if option.get("categorical"):
+        pe_t, jpe = (pe_t, 0.5 * pe_t), [jpe, 0.5 * jpe]
+    jopt = dict(option, **({"rngkey": jax.random.PRNGKey(option["rngkey"])} if "rngkey" in option else {}))
+    with jppl.trace() as jtr:
+        janalysis.hierarchical_likelihood(jpe, jnp.log(jnp.asarray(inj)), log=True, **jopt, **F5_KW)
+    with ppl.trace() as tr:
+        analysis.hierarchical_likelihood(pe_t, inj_t, log=True, **option, **F5_KW)
+    for name in ("log_l", "logBFs", "log_nEffs", "detection_efficiency"):
+        np.testing.assert_allclose(tr.trace[name]["value"][0].numpy(), np.asarray(jtr.trace[name]["value"]),
+                                   rtol=1e-12, err_msg=name)
 
 
 @pytest.mark.parametrize("name", ["hierarchical_likelihood", "per_event_log_bayes_factors", "detection_efficiency"])

@@ -273,8 +273,14 @@ def test_summaries_seam_guards():
         analysis.hierarchical_likelihood(None, None, categorical=True, **summaries, **kw)
     with pytest.raises(ValueError, match="posterior_predictive_check"), ppl.trace():
         analysis.hierarchical_likelihood(None, None, posterior_predictive_check=True, **summaries, **kw)
-    with pytest.raises(NotImplementedError), ppl.trace():
-        analysis.hierarchical_likelihood(pe, inj, categorical=True, **kw)
+    # categorical subpopulations on the weight banks themselves: two equal
+    # banks give the likelihood of either, whatever the draws
+    rates = {"unscaled_rate": torch.tensor([60.0, 70.0, 80.0], dtype=torch.float64)}
+    with ppl.trace() as cat, ppl.substitute(data=rates):
+        analysis.hierarchical_likelihood((pe, pe), inj, categorical=True, rngkey=0, pop_frac=[0.5, 0.5], log=True, **kw)
+    with ppl.trace() as one, ppl.substitute(data=rates):
+        analysis.hierarchical_likelihood(pe, inj, log=True, **kw)
+    assert torch.equal(cat.trace["log_l"]["value"], one.trace["log_l"]["value"])
 
 
 def test_bank_columns_are_cached_per_dtype_and_checked():
