@@ -91,7 +91,30 @@ and with its wall time as it ends:
     N(0, 0.2) base: beta = 1 reached within ``max_stages``, the log
     evidence and the particles finite and inside their supports, the peak
     memory;
-13. the kernels line (one JSON object), then the contract line
+13. the chunked route (``BenchModel(sample_chunks=n)``, ``ops/chunked.py``)
+    at 16 chains for n = 2, 4 and 8 against the flat route (potential to
+    1e-5 relative, gradient to 1e-4 of its largest component), each with
+    its wall ms per gradient, peak memory above the banks and K1 launches a
+    gradient (``chunk_launches``: 2 (n + 1)); n = 8 against a float64 CPU
+    evaluation on a slice; one forward-only potential at 1024 particles,
+    flat against n = 8 (peak memory, ms); NUTS on n = 8 at 3 + 3 (K1 by
+    the formula over its model runs);
+14. the generic streamed op (``make_streamed_double_logsumexp``): first its
+    backward kernel ``lse_vjp`` (``ops/csrc/lse_vjp.cu``) against its plain
+    version on each block shape the op launches it with, float32 and
+    float64, with edge rows, two launches bit for bit, kernel, plain and
+    bound times; then the bench chain as a torch ``logw_fn`` on both
+    streamed banks at C = 1 and 16, against K2's op and the flat
+    logsumexps; K1 once a block of 8 rows, lse_vjp once a block in the
+    backward;
+15. the parallel layer: a process group of one rank on NCCL (``file://``
+    init): ``sharded_logsumexp`` against ``torch.logsumexp``, the flat
+    route's scheduler-phase run with ``mesh=`` equal to that phase's async
+    run bit for bit, ``SMC(mesh=)`` against the run without one; then two
+    gloo ranks on the one card (spawned; results come back through files):
+    the data-sharded flat potential and gradient at C = 16 against the
+    unsharded one;
+16. the kernels line (one JSON object), then the contract line
     ``{"ok": true, "device": {...}}``, last on stdout.
 
 K1 is also held against its plain version at the config route's shapes
@@ -105,7 +128,12 @@ route (where K1 must not run either), K1's again from the config route,
 where it must launch exactly twice per model evaluation and K2 and K3 not
 at all, and so under HMC, SVI and SMC and on the library model's log route,
 each counted on its own (a model evaluation: one run of the model, counted
-by its ``log_likelihood`` site).
+by its ``log_likelihood`` site).  The new phases of the chunked likelihood,
+the generic streamed op and the parallel layer are counted the same way:
+K1 ``2 (n + 1)`` times a gradient on the chunked route (``n + 1`` without
+one), once a block of rows on the generic op (and lse_vjp once a block in
+its backward), twice a model run on the mesh runs and on each of the two
+gloo ranks.
 
 Every NUTS run goes through the default scheduler, the async one (16 chains
 on the flat and streamed routes, 8 on the B-spline route, 4 on the config
@@ -138,6 +166,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 
 from gwinferno_tpu_torch.cosmology import PLANCK_2015_LVK_Cosmology as COSMO  # noqa: E402
 from gwinferno_tpu_torch.infer import MCMC  # noqa: E402
@@ -164,13 +194,26 @@ from gwinferno_tpu_torch.ops.fused import FLW_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import _dlse_torch  # noqa: E402
 from gwinferno_tpu_torch.ops.fused import double_logsumexp  # noqa: E402
 from gwinferno_tpu_torch.ops import streamed  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import LSE_VJP_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import STREAMED_BWD_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import STREAMED_FWD_KERNEL  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import _lse_vjp_torch  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import lse_vjp  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import make_streamed_double_logsumexp  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import reshape_bank_rows  # noqa: E402
+from gwinferno_tpu_torch.parallel import create_mesh  # noqa: E402
+from gwinferno_tpu_torch.parallel import distributed_initialize  # noqa: E402
+from gwinferno_tpu_torch.parallel import shard_catalog  # noqa: E402
+from gwinferno_tpu_torch.parallel import sharded_logsumexp  # noqa: E402
+from gwinferno_tpu_torch.parallel import use_mesh  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import FIDUCIAL_INIT  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import MMAX  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import MMIN  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import TRUTH  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bench_model import INJ_ROW_COLS  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import BenchModel  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bench_model import bench_banks  # noqa: E402
+from gwinferno_tpu_torch.pipeline.bench_model import bench_log_weight  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import jittered_init  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bench_model import beta_ab  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import COEF_SITES  # noqa: E402
@@ -203,6 +246,7 @@ from gwinferno_tpu_torch.pipeline.utils import setup_bspline_spin_models  # noqa
 from gwinferno_tpu_torch.pipeline.utils import setup_powerlaw_spline_redshift_model  # noqa: E402
 from gwinferno_tpu_torch.pipeline.utils import to_tensors  # noqa: E402
 from gwinferno_tpu_torch.ppl import ModelPotential  # noqa: E402
+from gwinferno_tpu_torch.ppl import distributions as ppl_dist  # noqa: E402
 from gwinferno_tpu_torch.ppl.handlers import Messenger  # noqa: E402
 from gwinferno_tpu_torch.ppl.infer_util import find_valid_initial_params  # noqa: E402
 from gwinferno_tpu_torch.ppl.transforms import ExpTransform  # noqa: E402
@@ -243,6 +287,9 @@ SFU_PER_S = 16 * 132 * 1.98e9
 # weight 2.
 K2_FWD_SFU, K2_BWD_SFU = 9, 17
 K2_FWD_OPS, K2_BWD_OPS = 60, 140
+# lse_vjp's work per entry, counted from csrc/lse_vjp.cu: two exponentials;
+# two subtractions, a doubling, two multiplies and an add
+LSE_VJP_SFU, LSE_VJP_OPS = 2, 6
 
 # the B-spline production model (tools/run_bspline_production.py): knots per
 # block, mass range (pipeline/utils.py defaults), 8 chains, whitened
@@ -312,9 +359,13 @@ CONFIG_CHAINS = (4, 16)
 # at depth 6 costs up to 63); SVI's steps and rate (AutoDelta from
 # FIDUCIAL_INIT, then AutoNormal); SMC at the JAX package's defaults
 HMC_LEAPFROGS = 64
-# HMC's transitions (30 + 20 until the library phase came; its warmup is the
-# smoke's costliest phase); the earlier routes' are --warmup and --samples
-HMC_WARMUP, HMC_SAMPLES = 20, 10
+# HMC's transitions (30 + 20 until the library phase came, 20 + 10 until the
+# chunked and parallel phases came); its warmup is the smoke's costliest
+# phase, and it costs the same at 15 transitions (its first ones shrink the
+# step), where one chain ended at a step that took the 1023-leapfrog cap
+# (PERF.md, PR 13), so the samples came down instead; the earlier routes'
+# are --warmup and --samples
+HMC_WARMUP, HMC_SAMPLES = 20, 5
 SVI_STEPS, SVI_LR, SVI_NORMAL_STEPS, SVI_PARTICLES = 300, 0.02, 50, 4
 SMC_PARTICLES, SMC_MUTATIONS = 1024, 5
 # SMC's base is N(0, SMC_BASE_SCALE) in unconstrained space.  At the JAX
@@ -327,6 +378,11 @@ SMC_BASE_SCALE = 0.2
 RESUME_SAMPLES = 10
 # the scheduler phase's transitions on the flat route
 SCHED_WARMUP, SCHED_SAMPLES = 5, 5
+# the chunked route: the PE chunk counts (4000, 2000 and 1000 samples a
+# chunk) and its NUTS run's transitions at n = 8 (3 + 3: at 5 + 5 the run
+# took 100 s on an H100, its gradient being ~6x the flat route's)
+CHUNKS = (2, 4, 8)
+CHUNKED_WARMUP, CHUNKED_SAMPLES = 3, 3
 
 # synthetic search: proxy SNR ~ Mc_det^(5/6) / DL with a random projection
 D0_MPC = 1600.0
@@ -667,19 +723,20 @@ def check_k1(gen):
 # ----------------------------------------------------------------- main path
 
 
-def check_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=10000):
+def check_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=10000, **model_kw):
     """The card's float32 potential and gradient against a float64 CPU
-    evaluation (K1's plain version) of the same model on a slice of the
-    catalog: the first ``n_events`` events with all their samples (fewer
-    samples would put every event's n_eff under the Nobs wall) and the first
-    ``n_found`` injections."""
+    evaluation (K1's plain version) of the same model (``BenchModel``
+    with ``model_kw``) on a slice of the catalog: the first ``n_events``
+    events with all their samples (fewer samples would put every event's
+    n_eff under the Nobs wall) and the first ``n_found`` injections."""
     pe = {k: v[:n_events] for k, v in pedict.items()}
     inj = {k: v[:n_found] for k, v in injdict.items()}
     const = dict(constants, nObs=n_events)
     out = []
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
         zm = PowerlawRedshiftModel(pe["redshift"], inj["redshift"], device=dev, dtype=dtype)
-        pot = ModelPotential(BenchModel(pe, inj, const, zm, device=dev, dtype=dtype), device=dev, dtype=dtype)
+        pot = ModelPotential(BenchModel(pe, inj, const, zm, device=dev, dtype=dtype, **model_kw), device=dev,
+                             dtype=dtype)
         z = pot.unconstrain({k: v.to(dev, dtype) for k, v in params.items()}, N_CHAINS)
         out.append([t.double().cpu() for t in pot.value_and_grad(z)])
     (u32, g32), (u64, g64) = out
@@ -736,7 +793,9 @@ def flat_starts(init):
 
 def flat_route(args, gen):
     """The flat route (the default): catalog, reference check, potential and
-    gradient, NUTS.  Returns ``(K1 launches, catalog, init, potential, z0)``."""
+    gradient, NUTS, the resume and the scheduler phase.  Returns ``(K1
+    launches, catalog, init, potential, z0, the scheduler phase's async L = 1
+    run as (MCMC, model runs, K1 launches, wall s))``."""
     dev, dtype = torch.device("cuda"), torch.float32
     with phase("catalog"):
         pedict, injdict, constants = make_catalog(args.seed)
@@ -772,8 +831,8 @@ def flat_route(args, gen):
     log(f"  K1 launches on the flat route: {launches}")
     check_async_runs("flat", mcmc, runs, outside_loop_runs(mcmc, args.seed, init_params=flat_starts(init)))
     resume_flat(mcmc, model, args)
-    scheduler_phase(model, args, init)
-    return launches, (pedict, injdict, constants, z_model), init, potential, z0
+    async_run = scheduler_phase(model, args, init)
+    return launches, (pedict, injdict, constants, z_model), init, potential, z0, async_run
 
 
 def resume_flat(mcmc, model, args):
@@ -1969,6 +2028,7 @@ def scheduler_phase(model, args, init):
                 raise AssertionError(f"{label} differs from the sync scheduler's run in {diff}")
         log("  samples, the six extra fields, step size, inverse mass matrix and generator state equal bit for bit "
             "across the three runs")
+    return runs_of["async L=1"]
 
 
 # ----------------------------------------------------------------- config route (K1)
@@ -2086,16 +2146,16 @@ def config_nuts(pedict, injdict, constants, args):
         ppc = mcmc.get_deterministic(site_names={ppc_site})
         torch.cuda.synchronize()
     n_k1 = DLSE_KERNEL.launches
-    others = (STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, FLW_KERNEL.launches)
+    others = _other_counts()
     n_draws = args.samples * n_chains
     check_async_runs("config", mcmc, runs_run - math.ceil(n_draws / 64),
                      outside_loop_runs(mcmc, args.seed, *mcmc._potential.model_args))
     log(f"  launches on the config route: K1 {n_k1} over {runs.runs} model runs ({runs_run} in run_config, "
-        f"{runs.runs - runs_run} for the posterior-predictive site); K2 forward, K2 backward, K3: {others}")
+        f"{runs.runs - runs_run} for the posterior-predictive site); K2 forward, K2 backward, K3, lse_vjp: {others}")
     if n_k1 != 2 * runs.runs or n_k1 == 0:
         raise AssertionError(f"K1 launched {n_k1} times over {runs.runs} model runs; two a run expected")
     if any(others):
-        raise AssertionError(f"K2 or K3 ran on the config route: {others}")
+        raise AssertionError(f"K2, K3 or lse_vjp ran on the config route: {others}")
     want = set(mcmc.get_samples()) | set(DETERMINISTIC_SITES)
     if set(posterior) != want:
         raise AssertionError(f"config posterior has {sorted(posterior)}, want {sorted(want)}")
@@ -2114,18 +2174,25 @@ def config_nuts(pedict, injdict, constants, args):
 
 def _zero_counts():
     DLSE_KERNEL.launches = STREAMED_FWD_KERNEL.launches = STREAMED_BWD_KERNEL.launches = FLW_KERNEL.launches = 0
+    LSE_VJP_KERNEL.launches = 0
+
+
+def _other_counts():
+    """The launches of every kernel but K1: K2 forward, K2 backward, K3,
+    lse_vjp."""
+    return STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, FLW_KERNEL.launches, LSE_VJP_KERNEL.launches
 
 
 def _check_k1_only(label, runs):
-    """K1 launched exactly twice per model run over ``runs`` runs, K2 and K3
-    never; returns the K1 launches."""
+    """K1 launched exactly twice per model run over ``runs`` runs, the other
+    kernels never; returns the K1 launches."""
     n_k1 = DLSE_KERNEL.launches
-    others = (STREAMED_FWD_KERNEL.launches, STREAMED_BWD_KERNEL.launches, FLW_KERNEL.launches)
-    log(f"  launches under {label}: K1 {n_k1} over {runs} model runs; K2 forward, K2 backward, K3: {others}")
+    others = _other_counts()
+    log(f"  launches under {label}: K1 {n_k1} over {runs} model runs; K2 forward, K2 backward, K3, lse_vjp: {others}")
     if n_k1 != 2 * runs or n_k1 == 0:
         raise AssertionError(f"{label}: K1 launched {n_k1} times over {runs} model runs; two a run expected")
     if any(others):
-        raise AssertionError(f"{label}: K2 or K3 ran: {others}")
+        raise AssertionError(f"{label}: K2, K3 or lse_vjp ran: {others}")
     return n_k1
 
 
@@ -2324,6 +2391,422 @@ def config_route(args, catalog, gen):
     return config_nuts(pedict, injdict, constants, args), ms
 
 
+# ----------------------------------------------------------------- chunked route (ops/chunked.py)
+
+
+def _peak_above(fn):
+    """Peak device memory (bytes) that ``fn`` allocates above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _agree(got, want, label):
+    """Two float32 ``(potential, gradient)`` pairs at the same points: the
+    potential to 1e-5 relative, the gradient to 1e-4 of its largest
+    component.  Returns both errors."""
+    (u, g), (uw, gw) = got, want
+    du = float(((u.double() - uw.double()).abs() / uw.double().abs()).max())
+    dg = float((g.double() - gw.double()).abs().max() / gw.double().abs().max())
+    if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all()) and du <= 1e-5 and dg <= 1e-4):
+        raise AssertionError(f"{label}: potential rel diff {du:.3e}, gradient diff {dg:.3e} of its largest component")
+    return du, dg
+
+
+def chunk_launches(n, runs, forward_only=0):
+    """K1 launches of the chunked route over ``runs`` model runs, of which
+    ``forward_only`` ran without a gradient: ``n`` PE chunks and one
+    injection chunk a run, each launched again by the checkpoint's
+    recomputation in the backward."""
+    return 2 * (n + 1) * runs - (n + 1) * forward_only
+
+
+def chunked_route(catalog, z_model, init, args, gen):
+    """The chunked route (``BenchModel(sample_chunks=n)``) against the flat
+    route at 16 chains, float32: potential and gradient at the flat route's
+    starts, wall ms per gradient (median of 10), peak memory above the
+    resident banks and K1 launches per gradient, for n = 2, 4, 8 and the
+    flat route; n = 8 against a float64 CPU evaluation on a slice; one
+    forward-only potential at SMC's 1024 particles, flat against n = 8;
+    then NUTS on n = 8 (``CHUNKED_WARMUP`` + ``CHUNKED_SAMPLES``, depth 6,
+    the async scheduler), K1 by :func:`chunk_launches`.  Returns the
+    kernels-line numbers."""
+    pedict, injdict, constants = catalog
+    dev, dtype = torch.device("cuda"), torch.float32
+    t0 = time.perf_counter()
+    models = {1: bench_flat_model(catalog, z_model)}
+    models.update({n: BenchModel(pedict, injdict, constants, z_model, device=dev, dtype=dtype, sample_chunks=n)
+                   for n in CHUNKS})
+    pots = {n: ModelPotential(m, device=dev, dtype=dtype) for n, m in models.items()}
+    z0 = pots[1].unconstrain(flat_starts(init), N_CHAINS)
+    flat = pots[1].value_and_grad(z0)
+    table = {}
+    with phase(f"chunked route: potential + gradient against the flat route, {N_CHAINS} chains, n = {CHUNKS}"):
+        for n, pot in pots.items():
+            _zero_counts()
+            got = pot.value_and_grad(z0)
+            torch.cuda.synchronize()
+            k1 = DLSE_KERNEL.launches
+            want = 2 if n == 1 else chunk_launches(n, 1)
+            others = _other_counts()
+            if k1 != want or any(others):
+                raise AssertionError(f"chunked route n={n}: K1 {k1} launches a gradient ({want} expected), "
+                                     f"K2/K3/lse_vjp {others}")
+            du, dg = (0.0, 0.0) if n == 1 else _agree(got, flat, f"chunked route n={n} against the flat route")
+            ms = float(np.median([call_ms(lambda: pot.value_and_grad(z0)) for _ in range(10)]))
+            peak = _peak_above(lambda: pot.value_and_grad(z0)) / 1e6
+            table[n] = {"ms": ms, "peak_mb": peak, "k1_launches": k1, "du": du, "dg": dg}
+            label = "flat route" if n == 1 else f"n = {n} ({N_SAMPLES // n} PE samples a chunk)"
+            log(f"  {label}: {ms:.2f} ms a gradient (wall, median of 10), peak {peak:.1f} MB above the banks, "
+                f"K1 {k1} launches a gradient; potential rel diff {du:.2e}, gradient diff {dg:.2e} of its largest "
+                "component")
+    with phase("chunked route n = 8 against a float64 CPU evaluation on a slice"):
+        check_against_cpu(pedict, injdict, constants, init, sample_chunks=8)
+    n_big = SMC_PARTICLES
+    with phase(f"chunked route: one forward-only potential at {n_big} particles, flat against n = 8"), torch.no_grad():
+        zb = pots[1].unconstrain(flat_starts(jittered_init(n_big, gen, dtype=torch.float64)), n_big)
+        big = {}
+        for n in (1, 8):
+            torch.cuda.empty_cache()
+            _zero_counts()
+            u = pots[n](zb)
+            torch.cuda.synchronize()
+            k1 = DLSE_KERNEL.launches
+            if k1 != (2 if n == 1 else n + 1):
+                raise AssertionError(f"{n_big} particles, n={n}: K1 launched {k1} times")
+            ms = float(np.median([call_ms(lambda: pots[n](zb)) for _ in range(3)]))
+            peak = _peak_above(lambda: pots[n](zb)) / 1e9
+            big[n] = {"ms": ms, "peak_gb": peak, "k1_launches": k1, "u": u}
+            log(f"  {'flat' if n == 1 else 'n = 8'}: {ms:.2f} ms (median of 3), peak {peak:.3f} GB above the banks, "
+                f"K1 {k1} launches")
+        u1, u8 = big[1].pop("u"), big[8].pop("u")
+        live = torch.isfinite(u1) & (u1.abs() < 1e30)
+        du = float(((u8[live].double() - u1[live].double()).abs() / u1[live].double().abs()).max())
+        if not (int(live.sum()) > 0 and du <= 1e-5 and torch.equal(torch.isfinite(u1), torch.isfinite(u8))):
+            raise AssertionError(f"{n_big} particles: n = 8 against flat, rel diff {du:.3e} on {int(live.sum())} points")
+        log(f"  n = 8 against flat: rel diff {du:.2e} over the {int(live.sum())} particles off the walls")
+    torch.cuda.empty_cache()
+    kernel = NUTS(models[8], dense_mass=True, max_tree_depth=MAX_TREE_DEPTH)
+    with phase(f"NUTS on the chunked route n = 8: {CHUNKED_WARMUP} warmup + {CHUNKED_SAMPLES} samples, "
+               f"{N_CHAINS} chains, dense mass, depth {MAX_TREE_DEPTH}"):
+        mcmc = MCMC(kernel, num_warmup=CHUNKED_WARMUP, num_samples=CHUNKED_SAMPLES, num_chains=N_CHAINS, device=dev,
+                    dtype=dtype)
+        _zero_counts()
+        t1 = time.perf_counter()
+        with ModelRuns() as runs:
+            mcmc.run(args.seed, init_params=flat_starts(init))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n_k1 = DLSE_KERNEL.launches
+        # one forward-only run: the potential's site probe
+        want = chunk_launches(8, runs.runs, forward_only=1)
+        log(f"  {runs.runs} model runs, K1 {n_k1} launches ({want} by the formula: 18 a model run with a gradient, "
+            f"9 for the site probe), wall {wall:.2f} s")
+        if n_k1 != want:
+            raise AssertionError(f"chunked NUTS: K1 launched {n_k1} times, {want} by the formula")
+        samples = mcmc.get_samples()
+        if not all(bool(torch.isfinite(v).all()) for v in samples.values()):
+            raise AssertionError("chunked NUTS: samples not finite")
+        check_async_runs("chunked n=8", mcmc, runs.runs, outside_loop_runs(mcmc, args.seed, init_params=flat_starts(init)))
+    log(f"  chunked phase: {time.perf_counter() - t0:.2f} s")
+    return {"table": table, "particles": big, "nuts_launches": n_k1, "nuts_wall_s": wall}
+
+
+# ----------------------------------------------------------------- generic streamed op
+
+
+def _lse_vjp_bound_ms(rows, n, itemsize):
+    """The least time of one lse_vjp launch on ``(rows, n)``: the larger of
+    its bytes (the block read, the cotangent written, four row vectors)
+    over the memory rate and its exponentials over the special-function
+    rate or its other operations over the float32 rate."""
+    bytes_ms = (2 * rows * n + 4 * rows) * itemsize / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(rows * n * LSE_VJP_SFU / SFU_PER_S, rows * n * LSE_VJP_OPS / F32_FLOP_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def check_lse_vjp(label, lw32, gen):
+    """lse_vjp's kernel against its plain version on one block's log weights
+    ``lw32`` (the bench chain's, float32, at a shape the generic op's
+    backward launches it with), float32 and float64: as the op's backward
+    sees them (timed in float32: kernel, plain, bound), and with edge rows
+    (each chain's first row all -inf, so its ``l1``, ``l2`` are -inf and
+    its cotangent 0; its second row's ``l2`` +inf, so only the ``g1``
+    term); two launches bit for bit; float32 to atol 1e-6 / rtol 1e-5,
+    float64 to atol 1e-15 / rtol 1e-12.  Returns the float32 numbers."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        lw = lw32.to(dtype)
+        g1 = torch.rand(lw.shape[:-1], generator=gen, device="cuda", dtype=dtype)
+        g2 = torch.rand(lw.shape[:-1], generator=gen, device="cuda", dtype=dtype)
+        edge = lw.clone()
+        edge[..., 0, :] = -math.inf
+        cases = {"as the backward sees it": (lw, torch.logsumexp(lw, -1), torch.logsumexp(2.0 * lw, -1))}
+        l1e, l2e = torch.logsumexp(edge, -1), torch.logsumexp(2.0 * edge, -1)
+        l2e[..., 1] = math.inf
+        cases["edge rows"] = (edge, l1e, l2e)
+        tol = dict(atol=1e-6, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-15, rtol=1e-12)
+        for case, (x, l1, l2) in cases.items():
+            got, again = lse_vjp(x, g1, g2, l1, l2), lse_vjp(x, g1, g2, l1, l2)
+            want = _lse_vjp_torch(x, g1, g2, l1, l2)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"lse_vjp {label} {case} {dtype}: two launches differ")
+            if not bool(torch.isfinite(got).all()) or (case == "edge rows" and not bool((got[..., 0, :] == 0).all())):
+                raise AssertionError(f"lse_vjp {label} {case} {dtype}: a cotangent is not finite, or an all -inf "
+                                     "row's is not 0")
+            torch.testing.assert_close(got, want, **tol)
+            err = float((got - want).abs().max())
+            if dtype == torch.float32 and case == "as the backward sees it":
+                rows, n = x.numel() // x.shape[-1], x.shape[-1]
+                bound, by = _lse_vjp_bound_ms(rows, n, 4)
+                out = {"max_abs_err": err, "ms": time_ms(lambda: lse_vjp(x, g1, g2, l1, l2)),
+                       "plain_ms": time_ms(lambda: _lse_vjp_torch(x, g1, g2, l1, l2)), "bound_ms": bound,
+                       "bound_by": by}
+                log(f"  lse_vjp {label} {tuple(x.shape)} f32: max_abs_err={err:.3e}; kernel_ms={out['ms']:.4f} "
+                    f"plain_ms={out['plain_ms']:.4f} bound_ms={bound:.4f} ({by}; {bound / out['ms']:.1%} of the "
+                    "bound)")
+            else:
+                log(f"  lse_vjp {label} {tuple(x.shape)} {str(dtype)[6:]} {case}: max_abs_err={err:.3e}, ok")
+    return out
+
+
+def generic_streamed_phase(catalog, z_model, init, gen):
+    """The generic streamed op (``make_streamed_double_logsumexp``) with the
+    bench chain as a torch ``logw_fn`` (``bench_log_weight``, the
+    counterpart of ``bench.py:143-164``) on the PE bank ``(69, 8000)`` and
+    the injection rows ``(6, 8192)`` with their ``valid`` mask, at C = 1 and
+    16, float32.  First its backward kernel ``lse_vjp`` against its plain
+    version on the first and last block of rows of each (:func:`check_lse_vjp`);
+    then values and the theta gradient of ``sum(lse1) - 0.5 sum(lse2)``
+    against K2's op (``StreamedBank``) and against the flat logsumexps, each
+    to 1e-4 absolute on the log values (K2's float32 limit) and 1e-4 of the
+    largest component on the gradient; K1 once a block of 8 rows in the
+    forward and never in the backward, lse_vjp once a block in the backward;
+    ms per call (value + gradient) beside K2's.  Returns the kernels-line
+    numbers."""
+    pedict, injdict, constants = catalog
+    zmax = z_model.zmax
+    pe2d = bench_banks(pedict, z_model.dVdzs[1], zmax)
+    inj_rows, inj_valid = reshape_bank_rows(bench_banks(injdict, z_model.dVdzs[0], zmax), cols=INJ_ROW_COLS)
+    banks = {"PE": (pe2d, None), "injections": (inj_rows, inj_valid)}
+    on_card = {name: ({k: torch.as_tensor(v, device="cuda", dtype=None if v.dtype == bool else torch.float32)
+                       for k, v in bank.items()}, None if valid is None else torch.as_tensor(valid > 0, device="cuda"))
+               for name, (bank, valid) in banks.items()}
+    th64 = k2_theta(init, z_model)
+    out = {"launches": {}, "vjp_launches": {}, "ms": {}, "k2_ms": {}, "max_abs_err": 0.0, "vjp": {}}
+    with phase("generic streamed op: its backward kernel lse_vjp against its plain version"):
+        for name, (bank, valid) in banks.items():
+            full, mask = on_card[name]
+            rows = bank["mass_1"].shape[0]
+            for C in (1, N_CHAINS):
+                t = {k: (v[0] if C == 1 else v[:, None, None]).float() for k, v in th64.items()}
+                for r0, r1 in sorted({(0, min(8, rows)), (8 * ((rows - 1) // 8), rows)}):
+                    lw = bench_log_weight({k: v[r0:r1] for k, v in full.items()}, t)
+                    if mask is not None:
+                        lw = torch.where(mask[r0:r1], lw, -torch.inf)
+                    res = check_lse_vjp(f"{name} rows {r0}:{r1} C={C}", lw.contiguous(), gen)
+                    out["vjp"][f"{name} rows {r0}:{r1} C={C}"] = res
+    with phase("generic streamed op: the bench chain in torch against K2 and the flat logsumexps"):
+        for name, (bank, valid) in banks.items():
+            op = make_streamed_double_logsumexp(bench_log_weight, bank, block_rows=8, valid=valid)
+            k2_op = streamed.StreamedBank(bank, MMIN, MMAX, zmax, valid=valid)
+            full, mask = on_card[name]
+            rows = bank["mass_1"].shape[0]
+            blocks = -(-rows // 8)
+            for C in (1, N_CHAINS):
+                def theta():
+                    th = {k: (v[0] if C == 1 else v).float() for k, v in th64.items()}
+                    return {k: v.detach().requires_grad_(True) for k, v in th.items()}
+
+                def grad(fn, th):
+                    l1, l2 = fn(th)
+                    g = torch.autograd.grad(l1.sum() - 0.5 * l2.sum(), list(th.values()))
+                    return l1.detach(), l2.detach(), torch.stack(g)
+
+                def flat(th):
+                    t = {k: (v[:, None, None] if v.ndim == 1 else v) for k, v in th.items()}
+                    lw = bench_log_weight(full, t)
+                    if mask is not None:
+                        lw = torch.where(mask, lw, -torch.inf)
+                    return torch.logsumexp(lw, -1), torch.logsumexp(2.0 * lw, -1)
+
+                def k2(th):  # K2's op takes (C,) hyperparameters
+                    l1, l2 = k2_op({k: v.reshape(-1) for k, v in th.items()})
+                    return (l1[0], l2[0]) if C == 1 else (l1, l2)
+
+                _zero_counts()
+                got = grad(op, theta())
+                torch.cuda.synchronize()
+                k1, vjp = DLSE_KERNEL.launches, LSE_VJP_KERNEL.launches
+                if k1 != blocks or vjp != blocks:
+                    raise AssertionError(f"generic op {name} C={C}: K1 launched {k1} times, lse_vjp {vjp} times, "
+                                         f"{blocks} each expected")
+                errs = []
+                for ref_name, ref in (("K2", k2), ("flat", flat)):
+                    want = grad(ref, theta())
+                    dv = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got[:2], want[:2]))
+                    dg = float((got[2].double() - want[2].double()).abs().max() / want[2].double().abs().max())
+                    if not (dv <= 1e-4 and dg <= 1e-4 and bool(torch.isfinite(got[2]).all())):
+                        raise AssertionError(f"generic op {name} C={C} against {ref_name}: values {dv:.3e}, "
+                                             f"gradient {dg:.3e}")
+                    errs.append(f"against {ref_name}: values max abs err {dv:.2e}, gradient {dg:.2e}")
+                    out["max_abs_err"] = max(out["max_abs_err"], dv)
+                th = theta()
+                ms = float(np.median([call_ms(lambda: grad(op, th)) for _ in range(10)]))
+                k2_ms = float(np.median([call_ms(lambda: grad(k2, th)) for _ in range(10)]))
+                key = f"{name} C={C}"
+                out["launches"][key], out["vjp_launches"][key], out["ms"][key], out["k2_ms"][key] = k1, vjp, ms, k2_ms
+                log(f"  {name} {tuple(bank['mass_1'].shape)} C={C}: K1 {k1} launches a call (one a block of 8 rows, "
+                    f"none in the backward), lse_vjp {vjp} (one a block, in the backward); {'; '.join(errs)}; "
+                    f"{ms:.2f} ms a call (value + gradient; K2's op {k2_ms:.2f} ms; median of 10)")
+    return out
+
+
+# ----------------------------------------------------------------- parallel layer
+
+
+def smc_toy_model():
+    """The JAX package's SMC test model: y | x ~ N(0.9 x, sqrt(0.19))."""
+    x = ppl.sample("x", ppl_dist.Normal(0.0, 1.0))
+    y = ppl.sample("y", ppl_dist.Normal(0.0, 1.0))
+    ppl.factor("y_given_x", -0.5 * (y - 0.9 * x) ** 2 / 0.19 - 0.5 * math.log(0.19) + 0.5 * y**2)
+
+
+def world_one_phase(catalog, z_model, init, args, async_run):
+    """A process group of one rank on NCCL (``file://`` init): the mesh
+    ``create_mesh(1)``; ``sharded_logsumexp`` against ``torch.logsumexp`` on
+    the card (float64, 1e-12); the flat route's NUTS run of the scheduler
+    phase (16 chains, ``SCHED_WARMUP`` + ``SCHED_SAMPLES``, async) with
+    ``mesh=``, equal bit for bit to that phase's async run, K1 twice a model
+    run; ``SMC(mesh=)`` on the toy model (512 particles, float64) against
+    the run without a mesh (1e-8, the same stages).  Returns the
+    kernels-line numbers."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, phase("parallel layer: a process group of one rank on NCCL"):
+        distributed_initialize(f"file://{tmp}/dist_init", 1, 0)
+        try:
+            log(f"  backend {dist.get_backend()}, world size {dist.get_world_size()}")
+            mesh = create_mesh(1)
+            x = 5.0 + 3.0 * torch.randn(N_CHAINS, N_FOUND, device="cuda", dtype=torch.float64)
+            with use_mesh(mesh):
+                got = sharded_logsumexp(x, "data", axis=1)
+            err = float(((got - torch.logsumexp(x, 1)).abs() / torch.logsumexp(x, 1).abs()).max())
+            if not err <= 1e-12:
+                raise AssertionError(f"sharded_logsumexp on one rank: rel err {err:.3e}")
+            log(f"  {mesh}; sharded_logsumexp ({N_CHAINS}, {N_FOUND}) against torch.logsumexp: rel err {err:.2e}")
+
+            model = bench_flat_model(catalog, z_model)
+            mcmc = MCMC(NUTS(model, dense_mass=True, max_tree_depth=MAX_TREE_DEPTH), num_warmup=SCHED_WARMUP,
+                        num_samples=SCHED_SAMPLES, num_chains=N_CHAINS, chain_scheduler="async", mesh=mesh,
+                        device="cuda", dtype=torch.float32)
+            _zero_counts()
+            t0 = time.perf_counter()
+            with ModelRuns() as runs:
+                mcmc.run(args.seed, init_params=flat_starts(init))
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_k1 = _check_k1_only("the mesh run", runs.runs)
+            base, base_runs, _, base_wall = async_run
+            diff = _same_run(mcmc, base)
+            if diff or runs.runs != base_runs:
+                raise AssertionError(f"the mesh run differs from the scheduler phase's async run in {diff} "
+                                     f"({runs.runs} model runs against {base_runs})")
+            log(f"  the flat route's NUTS run with mesh=: {runs.runs} model runs, K1 {n_k1} launches, wall {wall:.2f} s "
+                f"(without a mesh, in the scheduler phase: {base_wall:.2f} s); samples, extra fields, step size, "
+                "inverse mass matrix and generator state equal that run's bit for bit")
+            out.update(mesh_launches=n_k1, mesh_wall_s=wall, unsharded_wall_s=base_wall)
+
+            kw = dict(num_particles=512, num_mutation_steps=3, device="cuda", dtype=torch.float64)
+            a = SMC(smc_toy_model, mesh=mesh, **kw).run(args.seed)
+            b = SMC(smc_toy_model, **kw).run(args.seed)
+            dp = max(float((a.particles[k] - b.particles[k]).abs().max()) for k in b.particles)
+            de = abs(float(a.log_evidence) - float(b.log_evidence))
+            if not (a.num_stages == b.num_stages and dp <= 1e-8 and de <= 1e-8 * abs(float(b.log_evidence))):
+                raise AssertionError(f"SMC with mesh=: stages {a.num_stages} against {b.num_stages}, particles "
+                                     f"{dp:.3e}, log evidence {de:.3e}")
+            log(f"  SMC(mesh=) on the toy model, 512 particles, float64: {a.num_stages} stages as without the mesh; "
+                f"particles max abs diff {dp:.2e}, log evidence diff {de:.2e}")
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _data_rank(rank, init_method, inputs, output):
+    """One of two gloo ranks on ``cuda:0`` (spawned by
+    :func:`two_rank_phase`; writes nothing to stdout): the bench flat
+    route's potential and gradient at the given starts from this rank's
+    shard of the catalog, under the mesh (1, 2); its K1 launches a gradient
+    and its ms a gradient (median of 5), saved to ``output``."""
+    sys.stdout = open(os.devnull, "w")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, world_size=2, rank=rank)
+    try:
+        data = torch.load(inputs, weights_only=False)
+        pedict, injdict, constants, z0 = data["pe"], data["inj"], data["constants"], data["z0"].cuda()
+        mesh = create_mesh(2, chain_axis_size=1)
+        zm = PowerlawRedshiftModel(pedict["redshift"], injdict["redshift"], device="cuda", dtype=torch.float32)
+        pe, inj, zm = shard_catalog(mesh, pedict, injdict, zm)
+        with use_mesh(mesh):
+            pot = ModelPotential(BenchModel(pe, inj, constants, zm, device="cuda", dtype=torch.float32),
+                                 device="cuda", dtype=torch.float32)
+            _zero_counts()
+            u, g = pot.value_and_grad(z0)
+            torch.cuda.synchronize()
+            k1 = DLSE_KERNEL.launches
+            ms = float(np.median([call_ms(lambda: pot.value_and_grad(z0)) for _ in range(5)]))
+        torch.save({"u": u.cpu(), "g": g.cpu(), "k1": k1, "ms": ms, "shard": tuple(pe["mass_1"].shape),
+                    "inj_shard": tuple(inj["mass_1"].shape), "coords": mesh.coords}, output)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_phase(catalog, z_model, init):
+    """Two gloo ranks on the one card (spawned processes, both on
+    ``cuda:0``; NCCL refuses two ranks on one GPU): the bench flat route's
+    potential and gradient at full width and C = 16, the PE samples and the
+    injections split over ``data`` = 2 (69 events do not split in two),
+    against the unsharded one on the card: the potential to 1e-5
+    relative, the gradient to 1e-4 of its largest component (float32 sums
+    in another order); K1 twice a gradient on each rank.  Returns the
+    kernels-line numbers."""
+    pedict, injdict, constants = catalog
+    with tempfile.TemporaryDirectory() as tmp, phase("parallel layer: two gloo ranks on the one card, data axis 2"):
+        pot = ModelPotential(bench_flat_model(catalog, z_model), device="cuda", dtype=torch.float32)
+        z0 = pot.unconstrain(flat_starts(init), N_CHAINS)
+        want = pot.value_and_grad(z0)
+        want_ms = float(np.median([call_ms(lambda: pot.value_and_grad(z0)) for _ in range(5)]))
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({"pe": pedict, "inj": injdict, "constants": constants, "z0": z0.cpu()}, inputs)
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        procs = [ctx.Process(target=_data_rank, args=(r, f"file://{tmp}/dist_init", inputs, outs[r])) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"the two ranks exited with {[p.exitcode for p in procs]}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+        for r, got in enumerate(res):
+            du, dg = _agree((got["u"].cuda(), got["g"].cuda()), want, f"rank {r} against the unsharded potential")
+            if got["k1"] != 2:
+                raise AssertionError(f"rank {r}: K1 launched {got['k1']} times a gradient, 2 expected")
+            log(f"  rank {r} {got['coords']}: PE shard {got['shard']}, injection shard {got['inj_shard']}; potential "
+                f"rel diff {du:.2e}, gradient diff {dg:.2e} of its largest component; K1 {got['k1']} launches a "
+                f"gradient; {got['ms']:.2f} ms a gradient (unsharded, one process: {want_ms:.2f} ms)")
+    return {"two_rank_launches": [g["k1"] for g in res], "two_rank_ms": [g["ms"] for g in res],
+            "two_rank_unsharded_ms": want_ms}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2343,11 +2826,12 @@ def main(argv=None):
         card = card_line()
         log(f"  card: {card}")
     with phase("build"):
-        secs = build_all([DLSE_KERNEL, STREAMED_FWD_KERNEL, STREAMED_BWD_KERNEL, FLW_KERNEL])
-        log(f"  K1 (dlse.cu), K2 (streamed.cu) and K3 (flw.cu) built with nvcc for sm_90a, in parallel, in {secs:.2f} s")
+        secs = build_all([DLSE_KERNEL, STREAMED_FWD_KERNEL, STREAMED_BWD_KERNEL, FLW_KERNEL, LSE_VJP_KERNEL])
+        log(f"  K1 (dlse.cu), K2 (streamed.cu), K3 (flw.cu) and lse_vjp (lse_vjp.cu) built with nvcc for sm_90a, in "
+            f"parallel, in {secs:.2f} s")
     with phase("K1 against its plain version"):
         k1 = check_k1(gen)
-    k1_launches, (pedict, injdict, constants, z_model), init, flat_potential, z0 = flat_route(args, gen)
+    k1_launches, (pedict, injdict, constants, z_model), init, flat_potential, z0, async_run = flat_route(args, gen)
 
     with phase("streamed model build"):
         model_s = BenchModel(pedict, injdict, constants, z_model, device="cuda", dtype=torch.float32, streamed=True)
@@ -2369,6 +2853,13 @@ def main(argv=None):
     hmc_launches = config_hmc(pedict, injdict, constants, args)
     svi_launches, svi_ms = svi_route((pedict, injdict, constants), z_model, args)
     smc_launches, smc_stages, smc_peak = smc_route((pedict, injdict, constants), z_model, args)
+    torch.cuda.empty_cache()
+    catalog = (pedict, injdict, constants)
+    chunked = chunked_route(catalog, z_model, init, args, gen)
+    torch.cuda.empty_cache()
+    generic = generic_streamed_phase(catalog, z_model, init, gen)
+    world_one = world_one_phase(catalog, z_model, init, args, async_run)
+    two_ranks = two_rank_phase(catalog, z_model, init)
 
     pe, inj = k1["flat_pe"], k1["flat_inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
@@ -2413,12 +2904,43 @@ def main(argv=None):
             "smc_stages": smc_stages,
             "smc_peak_gb": smc_peak,
             "svi_ms_per_step": svi_ms,
+            # the chunked route (16 chains): per n (1 is the flat route), K1
+            # launches, wall ms and peak MB a gradient; at 1024 particles one
+            # forward-only potential; its NUTS run's launches
+            "chunked_route": {str(n): v for n, v in chunked["table"].items()},
+            "chunked_1024_particles": {str(n): v for n, v in chunked["particles"].items()},
+            "chunked_nuts_launches": chunked["nuts_launches"],
+            # the generic streamed op on the bench chain: launches and ms a
+            # call (value + gradient) per bank and chain count
+            "generic_streamed_launches": generic["launches"],
+            "generic_streamed_ms": generic["ms"],
+            "generic_streamed_k2_ms": generic["k2_ms"],
+            # the parallel layer: the world-1 mesh run's launches, each of the
+            # two gloo ranks' launches a gradient
+            **world_one,
+            **two_ranks,
         },
         # one gradient's launches: the PE bank and the injection rows
         dict(k2_common, name="K2 streamed forward", replaces=STREAMED_FWD_KERNEL.replaces,
              also_replaces="gwinferno_tpu/ops/streamed.py:115", launches=n_fwd, **k2["fwd"]),
         dict(k2_common, name="K2 streamed backward", replaces=STREAMED_BWD_KERNEL.replaces,
              also_replaces="gwinferno_tpu/ops/streamed.py:134", launches=n_bwd, **k2["bwd"]),
+        # the generic streamed op's backward: launches over the generic phase's
+        # four calls (PE and injections, C = 1 and 16); one launch at the PE
+        # bank's first block of 8 rows, C = 16 (kernel, plain, bound)
+        {
+            "name": "lse_vjp (generic streamed op backward)",
+            "route": "cuda",
+            "source": os.path.relpath(LSE_VJP_KERNEL.source_path, HERE),
+            "replaces": LSE_VJP_KERNEL.replaces,
+            "also_replaces": "gwinferno_tpu/ops/streamed.py:260",
+            "launches": sum(generic["vjp_launches"].values()),
+            "max_abs_err": max(v["max_abs_err"] for v in generic["vjp"].values()),
+            **{k: generic["vjp"][f"PE rows 0:8 C={N_CHAINS}"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "per_block": generic["vjp"],
+            "per_call_launches": generic["vjp_launches"],
+        },
         # one gradient's two launches at C = 8: the PE bank and the injection row
         dict(name="K3 fused_logweight_logsumexp", route="cuda", source=os.path.relpath(FLW_KERNEL.source_path, HERE),
              replaces=FLW_KERNEL.replaces, launches=k3_launches, fused_route_grad_ms=bspline_ms["fused"],

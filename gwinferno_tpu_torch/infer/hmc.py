@@ -22,6 +22,7 @@ import math
 import torch
 
 from .hmc_util import MassMatrix
+from .hmc_util import chain_draw
 from .hmc_util import kinetic_energy
 from .hmc_util import leapfrog
 from .hmc_util import sample_momentum
@@ -44,7 +45,7 @@ def hmc_draws(state: NUTSState, mm: MassMatrix, generator):
     uniform per chain ``(C,)``, in that order from ``generator``."""
     z = state.z
     r0 = sample_momentum(mm, generator, z)
-    u = torch.rand(z.shape[0], generator=generator, dtype=z.dtype, device=z.device)
+    u = chain_draw(torch.rand, (z.shape[0],), generator, z.dtype, z.device)
     return r0, u
 
 

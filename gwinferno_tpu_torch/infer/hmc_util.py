@@ -22,6 +22,8 @@ __all__ = [
     "identity_mass_matrix",
     "velocity",
     "kinetic_energy",
+    "ChainRows",
+    "chain_draw",
     "sample_momentum",
     "momentum_from_normal",
     "value_and_grad",
@@ -90,13 +92,38 @@ def momentum_from_normal(mm: MassMatrix, eps):
     return _matvec(mm.mass_chol, eps, mm.is_dense)
 
 
+class ChainRows(NamedTuple):
+    """A generator whose draws are made for all ``total`` chains of a run,
+    of which a rank keeps its block ``rows``: a chain-sharded run then
+    consumes the generator as the unsharded run does, and chain ``c`` sees
+    row ``c`` of every draw (``MCMC`` and ``SMC`` over a mesh)."""
+
+    generator: torch.Generator
+    rows: slice
+    total: int
+
+
+def chain_draw(fn, shape, generator, dtype, device):
+    """``fn(shape, generator=, dtype=, device=)`` (``torch.randn``,
+    ``torch.rand``) with a leading chain axis; a :class:`ChainRows`
+    generator draws ``total`` rows and returns its own."""
+    if isinstance(generator, ChainRows):
+        full = fn((generator.total,) + tuple(shape[1:]), generator=generator.generator, dtype=dtype, device=device)
+        return full[generator.rows]
+    return fn(shape, generator=generator, dtype=dtype, device=device)
+
+
 def sample_momentum(mm: MassMatrix, generator, like):
-    eps = torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+    eps = chain_draw(torch.randn, like.shape, generator, like.dtype, like.device)
     return momentum_from_normal(mm, eps)
 
 
 def value_and_grad(potential_fn, z):
-    """``potential_fn(z)`` ``(C,)`` and its gradient ``(C, dim)``."""
+    """``potential_fn(z)`` ``(C,)`` and its gradient ``(C, dim)``; the
+    potential's own ``value_and_grad`` where it has one
+    (:class:`~gwinferno_tpu_torch.ppl.ModelPotential`)."""
+    if hasattr(potential_fn, "value_and_grad"):
+        return potential_fn.value_and_grad(z)
     with torch.enable_grad():
         zz = z.detach().requires_grad_(True)
         pe = potential_fn(zz)

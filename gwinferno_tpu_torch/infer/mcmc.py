@@ -26,6 +26,19 @@ Two schedulers run the transitions, with the same results bit for bit:
   ``t``'s randomness is drawn for all chains (:func:`~gwinferno_tpu_torch.infer.nuts.tree_draws`)
   the first time a chain reaches ``t``, so the generator is consumed in the
   sync engine's order, and chain ``c`` starts from row ``c`` of it.
+
+Over a mesh (``mesh=``, or ``chain_method="parallel"`` under a process group
+of several ranks; ``parallel/``), each rank runs its block of the chains
+through either scheduler.  Every rank makes the run's starts and step-size
+search for all chains, and draws every transition's randomness for all
+chains from the same generator, keeping its own rows
+(:class:`~gwinferno_tpu_torch.infer.hmc_util.ChainRows`): the run is the
+unsharded run, distributed.  Collective adaptation pools over the chain
+axis's ranks (the mean accept probability; the Welford states gathered and
+pooled identically on every rank), and the async scheduler's window barrier
+waits for the slowest chain of any rank.  The data axis is the likelihood's
+(``pipeline/analysis.py``).  At the end every rank gathers all chains in
+rank order.
 """
 
 from __future__ import annotations
@@ -36,12 +49,19 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..parallel.mesh import Mesh
+from ..parallel.mesh import create_mesh
+from ..parallel.mesh import use_mesh
+from ..parallel.sharding import gather_chains
+from ..parallel.sharding import min_over
 from ..ppl import handlers
 from ..ppl.infer_util import ModelPotential
 from ..ppl.infer_util import find_valid_initial_params
 from .diagnostics import print_summary
+from .hmc_util import ChainRows
 from .hmc_util import build_warmup_schedule
 from .hmc_util import da_init
 from .hmc_util import da_update
@@ -96,10 +116,16 @@ class MCMC:
     ``chain_method``: ``"vectorized"`` (all chains in one batch), or
     ``"sequential"`` (one chain after another, each a whole run with its own
     adaptation); ``chain_batch_size=B`` runs the vectorized engine on
-    batches of ``B`` chains one after another.  ``"parallel"`` runs
-    vectorized on one device (it says so on stderr); sharding the chains
-    over several devices, and ``mesh``, are not ported (ROADMAP M11) and
-    raise.
+    batches of ``B`` chains one after another.  ``"parallel"`` shards the
+    chains over the ranks of the process group (one process per card,
+    ``torchrun``): with ``W`` ranks and ``num_chains % W == 0`` it makes a
+    mesh of ``W`` ranks on the chain axis; otherwise it says so on stderr
+    and runs vectorized, and in one process that sees several cards it
+    raises rather than use one.  ``mesh`` (a
+    :class:`~gwinferno_tpu_torch.parallel.Mesh`) shards the chains over its
+    ``chain_axis`` and the likelihood's banks over its ``data`` axis (see
+    the module docstring); every rank of the mesh runs ``run`` and
+    ``get_deterministic`` with the same arguments.
 
     ``chain_scheduler``: ``"sync"``, ``"async"`` or ``"auto"`` (see the
     module docstring).  ``auto`` runs async when that is a pure reschedule:
@@ -133,7 +159,7 @@ class MCMC:
     ``transition_steps`` the leapfrogs of every transition, warmup
     included, ``(num_warmup + num_samples * thinning, num_chains)``.
     ``jit_model_args=True`` raises, as in the JAX package; ``chain_axis``
-    is accepted and unused.
+    names the mesh axis the chains shard over.
     """
 
     def __init__(self, kernel, num_warmup=500, num_samples=1500, num_chains=1, thinning=1,
@@ -151,8 +177,13 @@ class MCMC:
                 "and the compiled program is cached per (model, data, shapes) -- "
                 "re-running with same-shaped data already reuses the executable"
             )
-        if mesh is not None:
-            raise NotImplementedError("MCMC(mesh=...) shards the chains over devices; not ported yet (ROADMAP M11)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (parallel.create_mesh), got {type(mesh).__name__}")
+        if mesh is not None and int(chain_groups) > 1:
+            raise ValueError(
+                "chain_groups > 1 is a single-device tiling knob; with a sharded "
+                "chain axis the mesh already bounds the per-device batch"
+            )
         if max_steps_per_call is not None and (int(max_steps_per_call) != max_steps_per_call
                                                or max_steps_per_call < 1):
             raise ValueError(f"max_steps_per_call must be None or a positive integer, got {max_steps_per_call!r}")
@@ -164,7 +195,7 @@ class MCMC:
         if self.chain_groups > 1 and chain_method == "sequential":
             raise ValueError("chain_groups tiles a batched chain axis; chain_method='sequential' has none")
         if chain_batch_size is not None:
-            if chain_method != "vectorized":
+            if chain_method != "vectorized" or mesh is not None:
                 raise ValueError("chain_batch_size needs chain_method='vectorized' without a mesh")
             if collective_adaptation:
                 raise ValueError("chain_batch_size pools nothing across batches; collective_adaptation "
@@ -184,6 +215,7 @@ class MCMC:
         self.chain_method = chain_method
         self.progress_bar = bool(progress_bar)
         self.chain_axis = chain_axis
+        self.mesh = mesh
         self.max_steps_per_call = max_steps_per_call
         self.chain_scheduler = chain_scheduler
         self.chain_batch_size = None if chain_batch_size is None else int(chain_batch_size)
@@ -214,15 +246,31 @@ class MCMC:
     def _batch_size(self):
         if self.chain_method == "sequential":
             return 1
-        if self.chain_method == "parallel" and self.device.type == "cuda":
-            ndev = torch.cuda.device_count()
-            if ndev > 1 and self.num_chains % ndev == 0:
-                raise NotImplementedError(
-                    f"chain_method='parallel' over {ndev} devices is not ported yet (ROADMAP M11)")
-        if self.chain_method == "parallel":
-            print(f"chain_method='parallel': {self.num_chains} chains on one device; running vectorized",
-                  file=sys.stderr)
         return self.chain_batch_size or self.num_chains
+
+    def _resolve_mesh(self):
+        """The run's mesh: ``mesh``, or for ``chain_method="parallel"`` a
+        chain-axis mesh over the process group's ``W`` ranks when ``W > 1``
+        divides ``num_chains`` (kept for later runs), as the JAX engine
+        builds one over its devices."""
+        if self.mesh is not None or self.chain_method != "parallel":
+            return self.mesh
+        nc = self.num_chains
+        if dist.is_initialized():
+            ndev = dist.get_world_size()
+            if ndev > 1 and nc % ndev == 0:
+                self.mesh = create_mesh(ndev, chain_axis_size=ndev, axis_names=(self.chain_axis, "data"))
+                return self.mesh
+        elif self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            n = torch.cuda.device_count()
+            raise ValueError(f"chain_method='parallel' over the {n} cards this process sees needs one process "
+                             f"per card: run under torchrun --nproc-per-node={n} and call "
+                             "parallel.distributed_initialize() before MCMC.run")
+        else:
+            ndev = 1
+        print(f"chain_method='parallel': {nc} chains not shardable over {ndev} devices; running vectorized",
+              file=sys.stderr)
+        return None
 
     def _resolve_scheduler(self, nc):
         """True for the async (continuous-batching) scheduler, for a batch
@@ -242,6 +290,7 @@ class MCMC:
             hasattr(self.kernel, "make_tree_ops")
             and not self.collective_adaptation
             and self.chain_method == "vectorized"
+            and self.mesh is None
             and nc > 1
         )
 
@@ -292,6 +341,11 @@ class MCMC:
         return z, inv, ss
 
     def run(self, rng_seed, *model_args, init_params=None, post_warmup_state=None, **model_kwargs):
+        mesh = self._resolve_mesh()
+        with use_mesh(mesh):
+            return self._run(mesh, rng_seed, model_args, init_params, post_warmup_state, model_kwargs)
+
+    def _run(self, mesh, rng_seed, model_args, init_params, post_warmup_state, model_kwargs):
         k = self.kernel
         nc, dev, dtype = self.num_chains, self.device, self.dtype
         self.timings = {}
@@ -319,8 +373,10 @@ class MCMC:
 
         num_warmup = 0 if resume else self.num_warmup
         find_ss0 = k.adapt_step_size and not resume
+        # this rank's block of the chains (the whole batch without a mesh)
+        rows = mesh.rows(self.chain_axis, nc) if mesh is not None and self.chain_method != "sequential" else None
         outs = [self._run_batch(potential, z0[c : c + batch], inv0[c : c + batch], ss0[c : c + batch], gen,
-                                num_warmup, find_ss0, use_async, leapfrogs)
+                                num_warmup, find_ss0, use_async, leapfrogs, rows)
                 for c in range(0, nc, batch)]
         state = type(outs[0][0])(*(torch.cat(f) for f in zip(*(o[0] for o in outs))))
         inverse, mass_chol, step_size = (torch.cat([o[i] for o in outs]) for i in (1, 2, 3))
@@ -340,13 +396,16 @@ class MCMC:
         }
         return self
 
-    def _run_batch(self, potential, z0, inv0, ss0, gen, num_warmup, find_ss0, use_async, leapfrogs):
+    def _run_batch(self, potential, z0, inv0, ss0, gen, num_warmup, find_ss0, use_async, leapfrogs, rows=None):
         """One whole run (warmup, if any, then sampling) of the chains
         ``z0``, segment by segment.  Returns ``(last state, inverse mass
         matrix, its mass Cholesky factor, final step size, {"z": (T, C, dim),
-        extra field: (T, C)})`` over all ``T`` transitions."""
+        extra field: (T, C)})`` over all ``T`` transitions.  With ``rows``
+        (this rank's block of a mesh's chains) the starts and the step-size
+        search cover every chain, the transitions this rank's, and the
+        results are gathered from every rank of the chain axis."""
         k = self.kernel
-        nc, dim, dev, dtype = z0.shape[0], z0.shape[1], self.device, self.dtype
+        dim, dev, dtype = z0.shape[1], self.device, self.dtype
         t0 = time.perf_counter()
         state = k.make_init(potential)(z0)
         mm = mass_matrix_from_inverse(inv0)
@@ -355,6 +414,10 @@ class MCMC:
                                                   pe_grad=(state.pe, state.grad))
         else:
             step_size = ss0
+        if rows is not None:
+            state, mm, step_size = _rows(state, rows), _rows(mm, rows), step_size[rows]
+            gen = ChainRows(gen, rows, z0.shape[0])
+        nc = state.z.shape[0]
         carry = (state, da_init(step_size), welford_init(nc, dim, k.dense_mass, dtype, dev), mm, step_size)
         clock = {"t": self._tick("init", t0)}
 
@@ -397,7 +460,11 @@ class MCMC:
         else:
             collected = {"z": torch.zeros(0, nc, dim, dtype=dtype, device=dev)}
             collected.update({f: getattr(state, _STATE_OF_FIELD[f])[None][:0] for f in _EXTRA_FIELDS})
-        return state, mm.inverse, mm.mass_chol, ss_final, collected
+        out = (state, mm.inverse, mm.mass_chol, ss_final)
+        if rows is not None:
+            out = gather_chains(self.mesh, out, self.chain_axis)
+            collected = gather_chains(self.mesh, collected, self.chain_axis, dim=1)
+        return (*out, collected)
 
     # ------------------------------------------------------------ adaptation
 
@@ -408,12 +475,19 @@ class MCMC:
         value, and fresh Welford states.  Returns ``(mm, da, wf)``."""
         nc = wf.count.shape[0]
         if self.collective_adaptation:
-            cov = welford_covariance(welford_pool(wf))  # one pooled chain
+            cov = welford_covariance(welford_pool(self._all_chains(wf)))  # one pooled chain
             cov = cov.expand((nc,) + cov.shape[1:]).contiguous()
         else:
             cov = welford_covariance(wf)
         return (mass_matrix_from_inverse(cov), da_init(torch.exp(da.log_step)),
                 welford_init(nc, wf.mean.shape[1], self.kernel.dense_mass, self.dtype, self.device))
+
+    def _all_chains(self, x):
+        """``x`` (a tensor or NamedTuple of them, leading chain axis) for
+        every chain of the run under collective adaptation (never
+        sequential): gathered from the chain axis's ranks over a mesh, in
+        rank order, the same on every rank."""
+        return x if self.mesh is None else gather_chains(self.mesh, x, self.chain_axis)
 
     def _groups(self, nc):
         n = nc // self.chain_groups
@@ -442,7 +516,7 @@ class MCMC:
                 if k.adapt_step_size:
                     accept = state.accept_prob
                     if self.collective_adaptation:
-                        accept = accept.mean().expand_as(accept)
+                        accept = self._all_chains(accept).mean().expand_as(accept)
                     da = da_update(da, accept, target=k.target_accept_prob)
                 if k.adapt_mass_matrix and in_slow[j]:
                     wf = welford_update(wf, state.z)
@@ -519,10 +593,17 @@ class MCMC:
             ti = t.clamp_max(K - 1)
             close = done & window_end[ti]
             t_next = t + done.long()
+            t_low = t_next.min()
+            if collective:
+                # the barrier and the loop's end wait for every rank's chains
+                t_low = min_over(t_low, None if self.mesh is None else self.mesh.group(self.chain_axis))
             any_done, any_close, t_min, t_max = torch.stack(
-                [done.any().long(), close.any().long(), t_next.min(), t_next.max()]).tolist()
+                [done.any().long(), close.any().long(), t_low, t_next.max()]).tolist()
             self._count_read()
-            if any_done:
+            # a pooled window close is due (over a mesh a rank may have no
+            # chain finishing in the round that allows it)
+            due = collective and w_ends[w_ptr] < K and t_min > w_ends[w_ptr]
+            if any_done or due:
                 state = select_lanes(done, finish(tc), state)
                 if k.adapt_step_size:
                     da_new = da_update(da, state.accept_prob, target=k.target_accept_prob)
@@ -545,7 +626,7 @@ class MCMC:
                     # the window barrier: once every chain has finished the
                     # pending window-end step, one pooled close; until then a
                     # chain does not start past it
-                    if w_ends[w_ptr] < K and t_min > w_ends[w_ptr]:
+                    if due:
                         mm, da, wf = self._close_window(wf, da)
                         w_ptr += 1
                     eligible = eligible & (t <= w_ends[w_ptr])
@@ -591,7 +672,7 @@ class MCMC:
         pot = self._potential
         n = next(iter(samples.values())).shape[0]
         chunks = []
-        with torch.no_grad():
+        with torch.no_grad(), use_mesh(self.mesh):
             for start in range(0, n, batch_size):
                 chunk = {k: v[start : start + batch_size] for k, v in samples.items()}
                 b = next(iter(chunk.values())).shape[0]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .hmc_util import MassMatrix
+from .hmc_util import chain_draw
 from .hmc_util import kinetic_energy
 from .hmc_util import leapfrog
 from .hmc_util import momentum_from_normal
@@ -151,10 +152,11 @@ def tree_draws(num_chains, dim, max_tree_depth, dtype, device, generator) -> Tre
     total)`` and ``rand(C, md)``, in that order."""
     md = int(max_tree_depth)
     total = (1 << md) - 1
-    kw = dict(generator=generator, dtype=dtype, device=device)
-    eps = torch.randn((num_chains, dim), **kw)
-    return TreeDraws(eps, torch.rand((num_chains, md + 1), **kw), torch.rand((num_chains, total), **kw),
-                     torch.rand((num_chains, md), **kw))
+    def draw(fn, *shape):
+        return chain_draw(fn, (num_chains,) + shape, generator, dtype, device)
+
+    eps = draw(torch.randn, dim)
+    return TreeDraws(eps, draw(torch.rand, md + 1), draw(torch.rand, total), draw(torch.rand, md))
 
 
 def tree_start_from(state: NUTSState, mm: MassMatrix, step_size, draws: TreeDraws) -> TreeCarry:

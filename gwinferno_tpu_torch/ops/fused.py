@@ -39,6 +39,8 @@ from ._build import Kernel
 
 __all__ = [
     "double_logsumexp",
+    "logaddexp",
+    "merge_pairs",
     "dlse_geometry",
     "DLSE_KERNEL",
     "fused_logweight_logsumexp",
@@ -243,6 +245,28 @@ def double_logsumexp(x, axis=-1):
     if axis not in (-1, x.ndim - 1):
         x = torch.movedim(x, axis, -1)
     return _DoubleLogSumExp.apply(x)
+
+
+def logaddexp(a, b):
+    """``log(exp(a) + exp(b))`` that is ``-inf`` with a zero gradient where
+    both sides are ``-inf``, as K1's merge of tile partials is.
+    ``torch.logaddexp`` gives ``nan`` to both inputs there, which would
+    poison every gradient it reaches (a chunk or shard whose samples are all
+    off support)."""
+    m = torch.maximum(a, b).detach()
+    both = m == -torch.inf
+    m = torch.where(both, 0.0, m)
+    s = torch.exp(a - m) + torch.exp(b - m)
+    return torch.where(both, -torch.inf, m + torch.log(torch.where(both, 1.0, s)))
+
+
+def merge_pairs(pairs):
+    """Fold ``(logsumexp(x), logsumexp(2x))`` pairs of disjoint parts of a
+    row (chunks, shards) into the row's pair, left to right."""
+    l1, l2 = pairs[0]
+    for c1, c2 in pairs[1:]:
+        l1, l2 = logaddexp(l1, c1), logaddexp(l2, c2)
+    return l1, l2
 
 
 _FLW_ARGS = (

@@ -32,6 +32,22 @@ The split of the work:
   :func:`_streamed_fwd_torch` and :func:`_streamed_bwd_torch`, which run the
   same chain and the same analytic derivative in torch ops, in chunks over
   the bank.
+
+Any other chain goes through :func:`make_streamed_double_logsumexp`, the
+counterpart of the JAX function of that name: the caller's ``logw_fn`` in
+torch, block of bank rows by block, each block reduced by K1
+(``ops/fused.py``), with a backward that re-streams the banks, forms each
+block's log-weight cotangent in the hand-written kernel ``csrc/lse_vjp.cu``
+(:func:`lse_vjp`) and pulls it back with ``torch.autograd.grad``.  It is not
+a port of K2 for other chains: CUDA has no in-kernel autodiff, so the
+elementwise chain and its derivative are the caller's torch code, and the
+hand-written kernels are the reduction (K1) and its pullback (``lse_vjp``).
+It keeps what the JAX op is for, that no ``(C, N_bank)`` intermediate
+survives: one block's ``(C, block_rows, S)`` log weights at a time.
+
+The ops reduce what this process holds; under a mesh with a data axis the
+likelihood's layer merges the ranks' pairs
+(``pipeline/analysis.py::summaries_over_data``).
 """
 
 from __future__ import annotations
@@ -48,7 +64,9 @@ from ..distributions import _betaln
 from ..distributions import _norm_cdf
 from ..distributions import _powerlaw_log_norm
 from ._build import Kernel
+from .chunked import summaries_from_pairs
 from .fused import _sm_count
+from .fused import double_logsumexp
 
 __all__ = [
     "THETA",
@@ -59,7 +77,11 @@ __all__ = [
     "k2_geometry_at",
     "device_geometry",
     "k2_kernel_info",
+    "make_streamed_double_logsumexp",
+    "lse_vjp",
+    "LSE_VJP_KERNEL",
     "reshape_bank_rows",
+    "streamed_pairs",
     "streamed_summaries",
     "STREAMED_FWD_KERNEL",
     "STREAMED_BWD_KERNEL",
@@ -125,6 +147,15 @@ STREAMED_BWD_KERNEL = Kernel(
     replaces="gwinferno_tpu/ops/streamed.py:260",
 )
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the generic op's backward (csrc/lse_vjp.cu): the reduction side of the
+# Pallas backward kernels :134 and :260 for any chain
+_VJP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+LSE_VJP_KERNEL = Kernel(
+    "gw_lse_vjp",
+    "lse_vjp.cu",
+    {"gw_lse_vjp_f32": _VJP_ARGS, "gw_lse_vjp_f64": _VJP_ARGS},
+    replaces="gwinferno_tpu/ops/streamed.py:134",
+)
 
 
 # ----------------------------------------------------------------- parameters
@@ -270,25 +301,186 @@ def reshape_bank_rows(bank_1d, cols=8192):
     return out, valid.reshape(r, cols)
 
 
+def streamed_pairs(pe_call, inj_call, theta):
+    """The PE bank's per-event pair and the injection bank's pair (its rows'
+    pairs merged) from two streamed ops (:class:`StreamedBank` or
+    :func:`make_streamed_double_logsumexp`'s callables), with an optional
+    leading chain axis."""
+    il1, il2 = inj_call(theta)
+    return pe_call(theta), (torch.logsumexp(il1, dim=-1), torch.logsumexp(il2, dim=-1))
+
+
 def streamed_summaries(pe_call, inj_call, theta, n_samples, total_inj):
     """Assemble ``hierarchical_likelihood`` summaries from two streamed ops
-    (the PE bank and the row-reshaped injection bank); the tail arithmetic
-    of ``gwinferno_tpu/ops/streamed.py::streamed_summaries`` line for line,
-    with a leading chain axis."""
-    lse1, lse2 = pe_call(theta)
-    logBFs = lse1 - math.log(1.0 * n_samples)
-    log_n_effs = 2.0 * lse1 - lse2
+    (the PE bank and the row-reshaped injection bank, see
+    :func:`streamed_pairs`); the tail arithmetic of
+    ``gwinferno_tpu/ops/streamed.py::streamed_summaries``, with an optional
+    leading chain axis."""
+    return summaries_from_pairs(*streamed_pairs(pe_call, inj_call, theta), n_samples, total_inj)
 
-    il1, il2 = inj_call(theta)
-    ilse1 = torch.logsumexp(il1, dim=-1)
-    ilse2 = torch.logsumexp(il2, dim=-1)
-    log_ninj = math.log(total_inj)
-    log_mu = ilse1 - log_ninj
-    A = ilse2 - 2.0 * log_ninj
-    B = 2.0 * log_mu - log_ninj
-    logvar = A + torch.log1p(-torch.exp(torch.clamp_max(B - A, -1e-6)))
-    log_n_eff_inj = 2.0 * log_mu - logvar
-    return (logBFs, log_n_effs, n_samples), (log_mu, log_n_eff_inj)
+
+# ----------------------------------------------------------------- the generic op
+
+
+class _Blocks:
+    """The banks and row blocks of one generic streamed op, and its
+    per-block log weights."""
+
+    def __init__(self, logw_fn, banks, block_rows, valid):
+        self.logw_fn = logw_fn
+        self.names = sorted(banks)
+        shapes = {np.shape(banks[k]) for k in self.names}
+        if len(shapes) != 1 or len(next(iter(shapes))) != 2:
+            raise ValueError(f"streamed banks must all have one 2-D shape, got {shapes}")
+        self.rows, self.S = next(iter(shapes))
+        R = int(block_rows)
+        self.blocks = [(r, min(r + R, self.rows)) for r in range(0, self.rows, R)]
+        self.host = banks
+        self.valid = None if valid is None else np.asarray(valid) > 0
+        self._on = {}
+
+    def on(self, dtype, device):
+        """The banks (floating ones in ``dtype``) and the valid mask on
+        ``device``, made once per (dtype, device)."""
+        device = torch.empty(0, device=device).device
+        key = (dtype, device)
+        if key not in self._on:
+            def put(v):
+                t = torch.as_tensor(v, device=device)
+                return t.to(dtype) if t.is_floating_point() and isinstance(v, np.ndarray) else t
+            banks = {k: put(self.host[k]) for k in self.names}
+            valid = None if self.valid is None else torch.as_tensor(self.valid, device=device)
+            self._on[key] = (banks, valid)
+        return self._on[key]
+
+    def block_lw(self, theta, banks, valid, r0, r1):
+        """``logw_fn`` on rows ``r0:r1``, ``-inf`` where not valid."""
+        lw = self.logw_fn({k: v[r0:r1] for k, v in banks.items()}, theta)
+        if valid is not None:
+            lw = torch.where(valid[r0:r1], lw, -torch.inf)
+        return lw
+
+
+def _theta_view(keys, leaves):
+    """``theta`` as ``logw_fn`` sees it: a ``(C,)`` leaf as ``(C, 1, 1)``,
+    so that it broadcasts against a ``(rows, S)`` block; a scalar as is."""
+    return {k: (x[:, None, None] if x.ndim == 1 else x) for k, x in zip(keys, leaves)}
+
+
+def _lse_vjp_torch(lw, g1, g2, l1, l2):
+    """Plain version of :func:`lse_vjp`."""
+    f1, f2 = torch.isfinite(l1), torch.isfinite(l2)
+    g1, l1 = torch.where(f1, g1, 0.0), torch.where(f1, l1, 0.0)
+    g2, l2 = torch.where(f2, g2, 0.0), torch.where(f2, l2, 0.0)
+    return g1[..., None] * torch.exp(lw - l1[..., None]) + (2.0 * g2[..., None]) * torch.exp(2.0 * lw - l2[..., None])
+
+
+def lse_vjp_cuda(lw, g1, g2, l1, l2):
+    """Launch the generic op's backward kernel on a contiguous 2-D CUDA
+    tensor ``lw`` ``(rows, n)`` with contiguous ``(rows,)`` ``g1, g2, l1,
+    l2`` of its dtype; returns ``w`` ``(rows, n)``."""
+    if not lw.is_cuda:
+        raise ValueError("lse_vjp_cuda needs a CUDA tensor")
+    if lw.dtype not in _SUFFIX:
+        raise TypeError(f"lse_vjp_cuda supports float32 and float64, got {lw.dtype}")
+    rows, n = lw.shape
+    for t in (g1, g2, l1, l2):
+        if t.shape != (rows,) or t.dtype != lw.dtype or t.device != lw.device or not t.is_contiguous():
+            raise ValueError(f"lse_vjp_cuda needs contiguous ({rows},) {lw.dtype} row vectors on {lw.device}")
+    if not lw.is_contiguous():
+        raise ValueError("lse_vjp_cuda needs a contiguous lw")
+    w = torch.empty_like(lw)
+    with torch.cuda.device(lw.device):
+        stream = torch.cuda.current_stream(lw.device).cuda_stream
+        LSE_VJP_KERNEL.call(f"gw_lse_vjp_{_SUFFIX[lw.dtype]}", lw.data_ptr(), g1.data_ptr(), g2.data_ptr(),
+                            l1.data_ptr(), l2.data_ptr(), w.data_ptr(), rows, n, stream)
+    LSE_VJP_KERNEL.launches += 1
+    return w
+
+
+def lse_vjp(lw, g1, g2, l1, l2):
+    """The cotangent of log weights ``lw`` ``(..., n)`` from the cotangents
+    ``g1, g2`` ``(...)`` of their rows' ``l1 = logsumexp(lw)`` and ``l2 =
+    logsumexp(2 lw)``: ``g1 exp(lw - l1) + 2 g2 exp(2 lw - l2)``, a row whose
+    ``l1`` (``l2``) is not finite taking a zero ``g1`` (``g2``) against a
+    zero residual, as the JAX ``core_bwd`` sanitises them.  The kernel
+    ``csrc/lse_vjp.cu`` on a CUDA tensor, the plain version on a CPU one."""
+    if lw.is_cuda:
+        lead, n = lw.shape[:-1], lw.shape[-1]
+        rows = [t.to(lw.dtype).expand(lead).reshape(-1).contiguous() for t in (g1, g2, l1, l2)]
+        return lse_vjp_cuda(lw.reshape(-1, n).contiguous(), *rows).reshape(lw.shape)
+    if lw.device.type == "cpu":
+        return _lse_vjp_torch(lw, g1, g2, l1, l2)
+    raise ValueError(f"lse_vjp: no kernel for device {lw.device}")
+
+
+class _GenericStreamed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, keys, *leaves):
+        banks, valid = op.on(leaves[0].dtype, leaves[0].device)
+        th = _theta_view(keys, leaves)
+        pairs = [double_logsumexp(op.block_lw(th, banks, valid, r0, r1)) for r0, r1 in op.blocks]
+        l1 = torch.cat([p[0] for p in pairs], dim=-1)
+        l2 = torch.cat([p[1] for p in pairs], dim=-1)
+        ctx.op, ctx.keys = op, keys
+        ctx.save_for_backward(l1, l2, *leaves)
+        return l1, l2
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        op, keys = ctx.op, ctx.keys
+        l1, l2, *leaves = ctx.saved_tensors
+        banks, valid = op.on(leaves[0].dtype, leaves[0].device)
+        need = [i for i, n in enumerate(ctx.needs_input_grad[2:]) if n]
+        grads = [None] * len(leaves)
+        with torch.enable_grad():
+            req = [x.detach().requires_grad_(i in need) for i, x in enumerate(leaves)]
+            th = _theta_view(keys, req)
+            for r0, r1 in op.blocks:
+                lw = op.block_lw(th, banks, valid, r0, r1)
+                w = lse_vjp(lw.detach(), g1[..., r0:r1], g2[..., r0:r1], l1[..., r0:r1], l2[..., r0:r1])
+                parts = torch.autograd.grad(lw, [req[i] for i in need], grad_outputs=w, allow_unused=True)
+                for i, p in zip(need, parts):
+                    if p is not None:
+                        grads[i] = p if grads[i] is None else grads[i] + p
+        grads = [torch.zeros_like(x) if g is None and i in need else g for i, (x, g) in enumerate(zip(leaves, grads))]
+        return (None, None, *grads)
+
+
+def make_streamed_double_logsumexp(logw_fn, banks, block_rows=8, interpret=None, valid=None):
+    """Build ``f(theta) -> (lse1, lse2)`` over the sample banks, the
+    counterpart of the JAX function of this name for any log-weight chain.
+
+    ``banks``: dict name -> ``(rows, S)`` arrays or tensors, constants of
+    the problem (numpy floating arrays are put on ``theta``'s device in its
+    dtype at the first call; tensors are used as they are).
+    ``logw_fn(block, theta)``: log weights of one ``(r, S)`` block of rows,
+    written for a ``theta`` whose values are ``(C, 1, 1)`` (``theta`` a dict
+    of ``(C,)`` tensors, C chains) or scalars (C = 1), so ``(C, r, S)`` or
+    ``(r, S)``.  ``valid`` ``(rows, S)`` marks the real samples (the others
+    get ``-inf``).  Returns the per-row ``logsumexp(logw)`` and
+    ``logsumexp(2 logw)``, ``(C, rows)`` or ``(rows,)``.
+
+    The forward reduces each block of ``block_rows`` rows with K1 (one
+    launch a block on a CUDA tensor); the backward re-streams the banks,
+    recomputes each block's log weights with autograd on, forms their
+    cotangent ``g1 softmax(lw) + 2 g2 softmax(2 lw)`` with :func:`lse_vjp`
+    (one launch of ``csrc/lse_vjp.cu`` a block) and pulls it back to
+    ``theta`` with ``torch.autograd.grad``, so the live intermediates are
+    one block's.
+    Gradients flow to ``theta`` only; rows whose ``lse`` is not finite get
+    a zero cotangent.  ``interpret`` (the JAX flag for Pallas's interpret
+    mode) is accepted and ignored: nothing here is interpreted, the CPU
+    runs K1's plain version."""
+    op = _Blocks(logw_fn, banks, block_rows, valid)
+
+    def call(theta):
+        keys = tuple(sorted(theta))
+        first = next(t for t in theta.values() if isinstance(t, torch.Tensor))
+        leaves = [torch.as_tensor(theta[k], dtype=first.dtype, device=first.device) for k in keys]
+        return _GenericStreamed.apply(op, keys, *leaves)
+
+    return call
 
 
 # ----------------------------------------------------------------- plain versions

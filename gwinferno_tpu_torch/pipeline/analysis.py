@@ -9,12 +9,27 @@ weights and reduces them with plain sums, as the JAX package does;
 squares a linear weight.  Every function takes a leading batch (chain)
 axis: PE weights ``(..., N_events, N_samples)``, injection weights ``(...,
 N_found)``.
+
+Under a mesh with a data axis of ``W`` ranks (``parallel.use_mesh``, which
+``MCMC`` and ``SMC`` enter for a run), each rank holds a shard of the banks
+and the reductions are combined over the data group, so the model code is
+the same with and without a mesh.  The injection bank is sharded along its
+axis.  The PE bank is sharded along its sample axis (every rank holds all
+``Nobs`` events) or along its event axis (``Nobs / W`` events a rank):
+:func:`hierarchical_likelihood` tells the two apart by the events it is
+given.  Sample shards are merged as chunks are (the pairs of logsumexps, or
+the plain sums on the linear path), event shards by summing the sums over
+events.  Routes that reduce their banks upstream (the chunked and streamed
+ops) hand this rank's pairs to :func:`summaries_over_data`, which merges
+them the same way before the summaries seam; the seam refuses summaries
+that did not pass through it under such a mesh.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,7 +39,13 @@ from ..cosmology import PLANCK_2015_LVK_Cosmology
 from ..infer import HMC
 from ..infer import NUTS
 from ..infer import find_map  # re-exported, as the JAX package's analysis module does
+from ..ops.chunked import summaries_from_pairs
 from ..ops.fused import double_logsumexp
+from ..parallel.sharding import data_group
+from ..parallel.sharding import group_size
+from ..parallel.sharding import merge_over
+from ..parallel.sharding import min_over
+from ..parallel.sharding import sum_over
 from ..population_distributions import PowerlawRedshift
 from ..population_distributions import interp
 from ..ppl import distributions as dist
@@ -38,6 +59,8 @@ __all__ = [
     "per_event_log_bayes_factors",
     "detection_efficiency",
     "hierarchical_likelihood",
+    "summaries_over_data",
+    "MergedSummaries",
     "construct_hierarchical_model",
 ]
 
@@ -48,18 +71,25 @@ NP_KERNEL_MAP = {"NUTS": NUTS, "HMC": HMC}
 def per_event_log_bayes_factors(weights, log=False):
     """Per-event log Bayes factors by importance sampling over the PE banks
     ``weights`` (log-weights with ``log=True``, reduced by K1; linear
-    weights otherwise, reduced by plain sums).
+    weights otherwise, reduced by plain sums).  Under a mesh's data axis,
+    ``weights`` is this rank's shard of the sample axis.
 
     Returns ``(logBFs, log_n_effs, variances)``, each ``(..., N_events)``.
     """
-    n_samples = weights.shape[-1]
+    return _per_event(weights, log, data_group())
+
+
+def _per_event(weights, log, group):
+    """:func:`per_event_log_bayes_factors` with the sample axis sharded over
+    ``group`` (None: whole)."""
+    n_samples = weights.shape[-1] * group_size(group)
     if log:
-        lse1, lse2 = double_logsumexp(weights)
+        lse1, lse2 = merge_over(*double_logsumexp(weights), group)
         logn_effs = 2.0 * lse1 - lse2
         logBFs = lse1 - math.log(n_samples)
     else:
-        BFs = weights.sum(-1)
-        n_effs = BFs**2 / (weights**2).sum(-1)
+        BFs = sum_over(weights.sum(-1), group)
+        n_effs = BFs**2 / sum_over((weights**2).sum(-1), group)
         logBFs = torch.log(BFs / n_samples)
         logn_effs = torch.log(n_effs)
     variances = torch.exp(-logn_effs) - 1.0 / n_samples
@@ -69,15 +99,17 @@ def per_event_log_bayes_factors(weights, log=False):
 def detection_efficiency(weights, Ninj, log=False):
     """Detection efficiency mu by importance sampling over the found
     injections (``Ninj`` generated) with weights ``weights`` (log-weights
-    with ``log=True``), with its MC effective sample size.
+    with ``log=True``), with its MC effective sample size.  Under a mesh's
+    data axis, ``weights`` is this rank's shard of the injections.
 
     The estimator's variance is ``sum(w^2)/Ninj^2 - mu^2/Ninj``; on the log
     path it is evaluated in shifted log space.  Returns ``(log_mu,
     log_n_eff, variance)``, each of the batch shape.
     """
+    group = data_group()
     if log:
         log_ninj = math.log(Ninj)
-        lse1, lse2 = double_logsumexp(weights)
+        lse1, lse2 = merge_over(*double_logsumexp(weights), group)
         logmu = lse1 - log_ninj
         # var = e^A - e^B with A = log(sum w^2 / Ninj^2), B = log(mu^2 / Ninj);
         # B - A = log(n_eff_raw / Ninj) < 0 since n_eff_raw <= N_found < Ninj
@@ -86,12 +118,55 @@ def detection_efficiency(weights, Ninj, log=False):
         logvar = A + torch.log1p(-torch.exp(torch.clamp_max(B - A, -1e-6)))
         logn_eff = 2.0 * logmu - logvar
     else:
-        mu = weights.sum(-1) / Ninj
-        var = (weights**2).sum(-1) / Ninj**2 - mu**2 / Ninj
+        mu = sum_over(weights.sum(-1), group) / Ninj
+        var = sum_over((weights**2).sum(-1), group) / Ninj**2 - mu**2 / Ninj
         logmu = torch.log(mu)
         logn_eff = 2.0 * logmu - torch.log(var)
     variance = torch.exp(-logn_eff) - 1.0 / Ninj
     return logmu, logn_eff, variance
+
+
+def _event_group(n_events, Nobs, group):
+    """The data group when the PE bank (or its per-event reductions) holds
+    ``n_events`` of ``Nobs`` events, sharded along the event axis (``Nobs /
+    W`` on each of ``W`` ranks); None when every event is here (its samples
+    may be sharded)."""
+    if group is None or n_events == Nobs:
+        return None
+    if n_events * group_size(group) != Nobs:
+        raise ValueError(f"{n_events} events on this rank of a data axis of {group_size(group)} ranks; "
+                         f"Nobs={Nobs} needs all of them or an equal share")
+    return group
+
+
+class MergedSummaries(NamedTuple):
+    """``hierarchical_likelihood``'s ``pe_summaries`` as
+    :func:`summaries_over_data` returns them: merged over the data axis."""
+
+    logBFs: torch.Tensor
+    log_n_effs: torch.Tensor
+    n_samples: int
+
+
+def summaries_over_data(pe_pair, inj_pair, n_samples, total_inj, Nobs):
+    """``(pe_summaries, inj_summaries)`` for :func:`hierarchical_likelihood`
+    from this rank's pairs ``(logsumexp(lw), logsumexp(2 lw))``: the PE
+    bank's per event ``(..., E)`` over ``n_samples`` samples, the injection
+    bank's ``(...)`` (``ops/chunked.py::chunked_pairs``,
+    ``ops/streamed.py::streamed_pairs``).
+
+    Under a mesh's data axis of ``W`` ranks the injection pairs are merged
+    over the group, and so are the PE pairs when every rank holds all
+    ``Nobs`` events (a shard of their samples: ``W * n_samples`` in all);
+    with ``Nobs / W`` events a rank, the likelihood sums over the ranks'
+    events instead.  Outside a mesh this is the JAX tail
+    (``summaries_from_pairs``)."""
+    group = data_group()
+    if _event_group(pe_pair[0].shape[-1], Nobs, group) is None:
+        pe_pair = merge_over(*pe_pair, group)
+        n_samples = n_samples * group_size(group)
+    pe, inj = summaries_from_pairs(pe_pair, merge_over(*inj_pair, group), n_samples, total_inj)
+    return MergedSummaries(*pe), inj
 
 
 def _subpopulation_draws(Nobs, pop_frac, rngkey):
@@ -150,7 +225,8 @@ def hierarchical_likelihood(
     ``inj_summaries=(log_mu, log_n_eff_inj)`` take reductions computed
     upstream (the streamed op, ``ops/streamed.py``, or K3 through
     ``FusedBSplineLikelihood``) in place of the weight banks, which may then
-    be None.
+    be None.  Under a mesh's data axis of more than one rank they must come
+    from :func:`summaries_over_data`.
 
     ``posterior_predictive_check`` with ``param_names``, ``pedata`` and
     ``injdata`` adds the sites ``{p}_obs_event_{i}`` and
@@ -177,15 +253,27 @@ def hierarchical_likelihood(
     if (pe_summaries is not None or inj_summaries is not None) and posterior_predictive_check:
         raise ValueError("posterior_predictive_check needs the raw weight banks; disable it on the fused path")
 
+    group = data_group()
+    if (pe_summaries is not None or inj_summaries is not None) and group_size(group) > 1 and not isinstance(
+        pe_summaries, MergedSummaries
+    ):
+        raise ValueError("under a mesh's data axis, reductions computed upstream must be merged over it: "
+                         "pass this rank's pairs through summaries_over_data")
+    events = None  # the data group when the events are sharded over it
     if categorical:
+        if group_size(group) > 1:
+            raise ValueError("categorical subpopulations draw every event's subpopulation; they do not run "
+                             "under a mesh's data axis")
         Qs = _subpopulation_draws(Nobs, pop_frac, rngkey)[..., None].to(pe_weights[0].device)
         mix_pe_weights = torch.where(Qs == 0, pe_weights[0], pe_weights[1])
         logBFs, logn_effs, variances = per_event_log_bayes_factors(mix_pe_weights, log=log)
     elif pe_summaries is not None:
         logBFs, logn_effs, n_samples = pe_summaries
+        events = _event_group(logBFs.shape[-1], Nobs, group)
         variances = torch.exp(-logn_effs) - 1.0 / n_samples
     else:
-        logBFs, logn_effs, variances = per_event_log_bayes_factors(pe_weights, log=log)
+        events = _event_group(pe_weights.shape[-2], Nobs, group)
+        logBFs, logn_effs, variances = _per_event(pe_weights, log, group if events is None else None)
     if inj_summaries is not None:
         log_det_eff, logn_eff_inj = inj_summaries
         variance = torch.exp(-logn_eff_inj) - 1.0 / total_inj
@@ -211,15 +299,15 @@ def hierarchical_likelihood(
     sel = ppl.deterministic(
         "selection_factor", torch.where(torch.isinf(log_det_eff), floor, -Nobs * log_det_eff)
     )
-    sumlogBFs = ppl.deterministic("sum_logBFs", logBFs.sum(-1))
+    sumlogBFs = ppl.deterministic("sum_logBFs", sum_over(logBFs.sum(-1), events))
     log_l = sel + sumlogBFs
     log_l = ppl.deterministic("log_l", torch.where(torch.isnan(log_l), floor, torch.nan_to_num(log_l)))
 
     if min_neff_cut:
-        min_n_effs = torch.exp(torch.nan_to_num(logn_effs).amin(-1))
+        min_n_effs = torch.exp(min_over(torch.nan_to_num(logn_effs).amin(-1), events))
         log_l = ppl.deterministic("neff_less_Nobs", torch.where(min_n_effs <= Nobs, floor, log_l))
 
-    variance = ppl.deterministic("variance_log_likelihood", Nobs**2 * variance + variances.sum(-1))
+    variance = ppl.deterministic("variance_log_likelihood", Nobs**2 * variance + sum_over(variances.sum(-1), events))
     if max_variance_cut:
         log_l = ppl.deterministic("variance_less_1", torch.where(variance <= 1.0, log_l, floor))
 
@@ -231,6 +319,9 @@ def hierarchical_likelihood(
         if marginal_qs:
             names += [f"cat_frac_subpop_{i + 1}_event_{ev}" for ev in range(n_events) for i in range(len(indv_weights))]
         if ppl.deterministic_requested(names):
+            if group_size(group) > 1:
+                raise ValueError("the posterior-predictive sites draw from every event's whole bank; draw them "
+                                 "outside a mesh's data axis")
             _posterior_predictive_sites(pe_weights, inj_weights, pedata, injdata, param_names,
                                         m1min=m1min, m2min=m2min, mmax=mmax, marginal_qs=marginal_qs,
                                         indv_weights=indv_weights, log=log)

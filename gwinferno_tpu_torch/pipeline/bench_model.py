@@ -12,7 +12,15 @@ chain once over ``N_events * N_samples + N_found`` samples for all chains
 ``(C, N)``.  The data-only terms (``log prior``, ``log dVc/dz``,
 ``log(1+z)`` and the ``z <= zmax`` mask) are computed once at construction.
 The streamed route (``streamed=True``) keeps the two banks apart and hands
-them to K2 instead.
+them to K2 instead; the chunked route (``sample_chunks=n``) keeps them apart
+too and evaluates the chain in ``n`` chunks of the PE sample axis
+(``ops/chunked.py``).
+
+Under a mesh with a data axis, each rank builds the model from its shard of
+the catalog (``parallel.shard_catalog``: the PE banks along their sample
+axis, the injections along theirs, dVc/dz with them), and every route's
+likelihood merges the ranks' reductions (``analysis.summaries_over_data``
+for the chunked and streamed routes).
 """
 
 from __future__ import annotations
@@ -25,13 +33,17 @@ from ..models.parametric.parametric import log_independent_spin_magnitude_beta_d
 from ..models.parametric.parametric import log_independent_spin_tilt
 from ..models.parametric.parametric import log_plpeak_primary_ratio_pdf
 from .. import ppl
+from ..ops.chunked import chunked_pairs
+from ..ops.streamed import BANK_KEYS
 from ..ops.streamed import StreamedBank
 from ..ops.streamed import reshape_bank_rows
-from ..ops.streamed import streamed_summaries
+from ..ops.streamed import streamed_pairs
 from ..ppl import distributions as dist
 from .analysis import hierarchical_likelihood
+from .analysis import summaries_over_data
 
-__all__ = ["BenchModel", "FIDUCIAL_INIT", "TRUTH", "INIT_JITTER", "jittered_init", "MMIN", "MMAX"]
+__all__ = ["BenchModel", "FIDUCIAL_INIT", "TRUTH", "INIT_JITTER", "jittered_init", "MMIN", "MMAX", "bench_log_weight",
+           "bench_banks"]
 
 MMIN, MMAX = 5.0, 100.0
 PARAMS7 = ("mass_1", "mass_ratio", "redshift", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2")
@@ -78,6 +90,44 @@ def jittered_init(num_chains, generator, dtype=torch.float32):
     return out
 
 
+def bench_banks(d, dvdz, zmax):
+    """The bench chain's bank from the sample dict ``d`` (numpy, any shape)
+    and ``dVc/dz`` at its redshifts: the seven parameters, ``log_prior``,
+    ``log_dvdz``, ``log1pz`` (float64) and ``z_ok`` (``redshift <= zmax``)."""
+    out = {k: np.asarray(d[k], np.float64) for k in PARAMS7}
+    out["log_prior"] = np.log(np.asarray(d["prior"], np.float64))
+    out["log_dvdz"] = np.log(np.asarray(dvdz, np.float64))
+    out["log1pz"] = np.log1p(out["redshift"])
+    out["z_ok"] = out["redshift"] <= zmax
+    return out
+
+
+def bench_log_weight(d, th):
+    """Per-sample log-weights of the population ``th`` over the bank ``d``
+    (:func:`bench_banks`' keys, as tensors), broadcast against the shapes of
+    ``th``'s values: ``bench.py``'s ``log_weight`` and ``streamed_logw``.
+    NaN and ``+inf`` become ``-inf``."""
+    logw = (
+        log_plpeak_primary_ratio_pdf(
+            d["mass_1"], d["mass_ratio"], th["alpha"], th["beta"], MMIN, MMAX,
+            th["mu_peak"], th["sig_peak"], th["lambda_m"],
+        )
+        + log_independent_spin_magnitude_beta_dist(
+            d["a_1"], d["a_2"], th["alpha_a1"], th["beta_a1"], th["alpha_a2"], th["beta_a2"]
+        )
+        + log_independent_spin_tilt(
+            d["cos_tilt_1"], d["cos_tilt_2"], th["lambda_ct1"], th["lambda_ct2"], th["sig_ct1"], th["sig_ct2"]
+        )
+        + torch.where(
+            d["z_ok"],
+            d["log_dvdz"] + (th["lamb"] - 1.0) * d["log1pz"] - th["z_lognorm"],
+            torch.finfo(d["log_dvdz"].dtype).min,
+        )
+        - d["log_prior"]
+    )
+    return torch.where(torch.isnan(logw) | (logw == torch.inf), -torch.inf, logw)
+
+
 class BenchModel(torch.nn.Module):
     """The bench model as a PPL model: calling it declares the 15 sample
     sites and the likelihood factor.  Sites carry a leading chain axis.
@@ -86,10 +136,16 @@ class BenchModel(torch.nn.Module):
     (``BENCH_STREAMED=1``): the whole log-weight chain and its paired
     reduction run in K2 (``ops/streamed.py``) over the PE bank ``(E, S)``
     and the injection bank reshaped to rows of 8192, and the reductions feed
-    the likelihood's summaries seam.  The default is the flat route.
+    the likelihood's summaries seam.  ``sample_chunks=n > 1`` takes the
+    chunked route of ``bench.py`` (``BENCH_SAMPLE_CHUNKS=n``): the PE bank in
+    ``n`` chunks of its sample axis and the injections in one, each under a
+    checkpoint and reduced by K1 (``ops/chunked.py``), into the same seam.
+    The default is the flat route.  The JAX bench takes the streamed route
+    when both are set; here the pair raises.
     """
 
-    def __init__(self, pedict, injdict, constants, z_model, device=None, dtype=torch.float32, streamed=False):
+    def __init__(self, pedict, injdict, constants, z_model, device=None, dtype=torch.float32, streamed=False,
+                 sample_chunks=1):
         super().__init__()
         dev = resolve_device(device)
         E, S = np.shape(pedict["mass_1"])
@@ -97,34 +153,32 @@ class BenchModel(torch.nn.Module):
         self.constants = dict(constants)
         self.z_model = z_model
         self.streamed = bool(streamed)
+        self.sample_chunks = int(sample_chunks)
+        if self.sample_chunks < 1 or self.n_samples % self.sample_chunks:
+            raise ValueError(f"sample_chunks={sample_chunks} must divide the {self.n_samples} PE samples")
+        if self.streamed and self.sample_chunks > 1:
+            raise ValueError("streamed=True and sample_chunks > 1 are two routes; pick one")
         if self.streamed:
             self._build_streamed(pedict, injdict, z_model, dev, dtype)
             return
+        pe = bench_banks(pedict, z_model.dVdzs[1], z_model.zmax)
+        inj = bench_banks(injdict, z_model.dVdzs[0], z_model.zmax)
 
-        def cat(name):
-            return np.concatenate([np.asarray(pedict[name], np.float64).reshape(-1), np.asarray(injdict[name], np.float64)])
+        def put(bank):
+            return {k: torch.as_tensor(v, dtype=None if v.dtype == bool else dtype, device=dev) for k, v in bank.items()}
 
-        bank = {k: cat(k) for k in PARAMS7}
-        bank["log_prior"] = np.log(cat("prior"))
-        bank["log_dvdz"] = np.log(np.concatenate([np.asarray(z_model.dVdzs[1]).reshape(-1), np.asarray(z_model.dVdzs[0])]))
-        bank["log1pz"] = np.log1p(bank["redshift"])
-        for k, v in bank.items():
-            self.register_buffer(k, torch.as_tensor(v, dtype=dtype, device=dev))
-        self.register_buffer("z_ok", torch.as_tensor(bank["redshift"] <= z_model.zmax, device=dev))
+        if self.sample_chunks > 1:
+            self.pe_bank, self.inj_bank = put(pe), put(inj)
+            return
+        for k, v in put({k: np.concatenate([pe[k].reshape(-1), inj[k]]) for k in pe}).items():
+            self.register_buffer(k, v)
 
     def _build_streamed(self, pedict, injdict, z_model, dev, dtype):
         """The two banks of the streamed route, their data-only columns made
         once on ``dev`` in ``dtype``."""
-
-        def with_logs(d, dvdz):
-            out = {k: np.asarray(d[k], np.float64) for k in PARAMS7}
-            out["log_prior"] = np.log(np.asarray(d["prior"], np.float64))
-            out["log_dvdz"] = np.log(np.asarray(dvdz, np.float64))
-            out["log1pz"] = np.log1p(out["redshift"])
-            return out
-
-        pe2d = with_logs(pedict, z_model.dVdzs[1])
-        inj_rows, inj_valid = reshape_bank_rows(with_logs(injdict, z_model.dVdzs[0]), cols=INJ_ROW_COLS)
+        pe2d = bench_banks(pedict, z_model.dVdzs[1], z_model.zmax)
+        inj = bench_banks(injdict, z_model.dVdzs[0], z_model.zmax)
+        inj_rows, inj_valid = reshape_bank_rows({k: inj[k] for k in BANK_KEYS}, cols=INJ_ROW_COLS)
         self.pe_op = StreamedBank(pe2d, MMIN, MMAX, z_model.zmax)
         self.inj_op = StreamedBank(inj_rows, MMIN, MMAX, z_model.zmax, valid=inj_valid)
         for op in (self.pe_op, self.inj_op):
@@ -133,25 +187,8 @@ class BenchModel(torch.nn.Module):
     def log_weight(self, th):
         """Per-sample log-weights ``(C, N)`` of the population ``th`` (each
         hyperparameter ``(C, 1)``) over the concatenated bank."""
-        logw = (
-            log_plpeak_primary_ratio_pdf(
-                self.mass_1, self.mass_ratio, th["alpha"], th["beta"], MMIN, MMAX,
-                th["mu_peak"], th["sig_peak"], th["lambda_m"],
-            )
-            + log_independent_spin_magnitude_beta_dist(
-                self.a_1, self.a_2, th["alpha_a1"], th["beta_a1"], th["alpha_a2"], th["beta_a2"]
-            )
-            + log_independent_spin_tilt(
-                self.cos_tilt_1, self.cos_tilt_2, th["lambda_ct1"], th["lambda_ct2"], th["sig_ct1"], th["sig_ct2"]
-            )
-            + torch.where(
-                self.z_ok,
-                self.log_dvdz + (th["lamb"] - 1.0) * self.log1pz - th["z_lognorm"],
-                torch.finfo(self.log_dvdz.dtype).min,
-            )
-            - self.log_prior
-        )
-        return torch.where(torch.isnan(logw) | (logw == torch.inf), -torch.inf, logw)
+        bank = {k: getattr(self, k) for k in PARAMS7 + ("log_prior", "log_dvdz", "log1pz", "z_ok")}
+        return bench_log_weight(bank, th)
 
     def forward(self):
         th = {
@@ -174,18 +211,28 @@ class BenchModel(torch.nn.Module):
         th["alpha_a2"], th["beta_a2"] = beta_ab(th["mu_a2"], th["var_a2"])
         z_lognorm = torch.log(self.z_model.normalization(th["lamb"]))
         th["z_lognorm"] = z_lognorm
+        c = self.constants
         if self.streamed:
             pe_w = inj_w = None
-            pe_sum, inj_sum = streamed_summaries(
-                self.pe_op, self.inj_op, th, self.n_samples, self.constants["total_inj"]
+            pe_sum, inj_sum = summaries_over_data(
+                *streamed_pairs(self.pe_op, self.inj_op, th), self.n_samples, c["total_inj"], c["nObs"]
             )
+        elif self.sample_chunks > 1:
+            pe_w = inj_w = None
+            th_pe = {k: v[:, None, None] for k, v in th.items()}
+            th_inj = {k: v[:, None] for k, v in th.items()}
+            pairs = chunked_pairs(
+                lambda part: bench_log_weight(part, th_pe), self.pe_bank,
+                lambda part: bench_log_weight(part, th_inj), self.inj_bank,
+                self.sample_chunks, inj_chunks=1,
+            )
+            pe_sum, inj_sum = summaries_over_data(*pairs, self.n_samples, c["total_inj"], c["nObs"])
         else:
             C = th["lamb"].shape[0]
             logw = self.log_weight({k: v[:, None] for k, v in th.items()})
             n_pe = self.n_events * self.n_samples
             pe_w, inj_w = logw[:, :n_pe].reshape(C, self.n_events, self.n_samples), logw[:, n_pe:]
             pe_sum = inj_sum = None
-        c = self.constants
         hierarchical_likelihood(
             pe_w,
             inj_w,

@@ -13,6 +13,9 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import data_group
+from ..parallel.sharding import group_size
+from ..parallel.sharding import sum_over
 from . import handlers
 from .constraints import biject_to
 from .primitives import _plate_sample_shape
@@ -211,12 +214,21 @@ class ModelPotential:
     def value_and_grad(self, z):
         """Potential ``(C,)`` and its gradient ``(C, D)``: chains are
         independent, so one backward pass of the summed potential gives every
-        chain's gradient."""
+        chain's gradient.
+
+        Under a mesh's data axis of ``W`` ranks (``parallel.use_mesh``) every
+        rank of the data group computes the same potential from its shard of
+        the banks.  The backward is then seeded with ``1 / W`` and the
+        gradient summed over the group (the data-parallel rule,
+        ``parallel/sharding.py``): the shards' terms reach it once each, the
+        replicated ones once in all."""
+        group = data_group()
         with torch.enable_grad():
             zz = z.detach().requires_grad_(True)
             pe = self(zz)
-            (grad,) = torch.autograd.grad(pe.sum(), zz)
-        return pe.detach(), grad
+            total = pe.sum() if group is None else pe.sum() / group_size(group)
+            (grad,) = torch.autograd.grad(total, zz)
+        return pe.detach(), sum_over(grad, group)
 
     def constrain(self, z):
         """``(C, D)`` -> ``{site: (C, *shape)}`` constrained values."""

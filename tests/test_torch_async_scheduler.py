@@ -11,9 +11,9 @@ The JAX package holds dense mass only to ULPs (its two programs fuse the
 batched Cholesky differently); the port runs the same eager operations in
 both schedulers, so it holds dense mass bit for bit too.  The statistical
 cases (collective with an adaptive step size, ``chain_groups``, chain
-batches) use the JAX test's limits.  Not mirrored here:
+batches) use the JAX test's limits.
 ``test_async_collective_sharded_matches_unsharded``, which needs a chain
-mesh (ROADMAP M11)."""
+mesh of several processes, is mirrored in ``tests/test_torch_parallel.py``."""
 
 import functools
 

@@ -17,7 +17,8 @@ PKG = os.path.join(ROOT, "gwinferno_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_scheduler_routes.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_scheduler_routes.py"),
+             os.path.join(ROOT, "chip_parallel.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -119,13 +120,15 @@ def test_config_dotted_paths_resolve_onto_the_port():
 
 
 def test_jax_package_paths_never_fall_back_to_the_jax_package():
-    """A dotted path of the JAX package that the port lacks, or a JAX path,
-    raises ImportError without any attempt to import the JAX package."""
+    """A dotted path of the JAX package that the port lacks (``preprocess``,
+    ``utils/host.py``), or a JAX path, raises ImportError without any attempt
+    to import the JAX package; one that the port has resolves onto the port
+    (the chunked op and the parallel layer since they were ported)."""
     code = _SPY + (
         "from gwinferno_tpu_torch.pipeline.parser import load_dist_from_string\n"
-        "for p in ('gwinferno_tpu.parallel.mesh.create_mesh', 'gwinferno.parallel.sharding.shard_chain_state',\n"
-        "          'gwinferno_tpu.ops.chunked.chunked_summaries', 'numpyro.distributions.StudentT',\n"
-        "          'jax.numpy.sum'):\n"
+        "for p in ('gwinferno_tpu.preprocess.priors.chi_effective_prior_from_aligned_spins',\n"
+        "          'gwinferno.preprocess.priors.Di', 'gwinferno_tpu.utils.host.xp_for',\n"
+        "          'numpyro.distributions.StudentT', 'jax.numpy.sum'):\n"
         "    try:\n"
         "        load_dist_from_string(p)\n"
         "    except ImportError as e:\n"
@@ -135,6 +138,12 @@ def test_jax_package_paths_never_fall_back_to_the_jax_package():
         "from gwinferno_tpu_torch.infer.svi import find_map\n"
         "for p in ('gwinferno_tpu.infer.svi.find_map', 'gwinferno.pipeline.analysis.find_map'):\n"
         "    assert load_dist_from_string(p) is find_map, p\n"
+        "from gwinferno_tpu_torch.ops.chunked import chunked_summaries\n"
+        "from gwinferno_tpu_torch.parallel import create_mesh, shard_chain_state\n"
+        "for p, want in (('gwinferno_tpu.parallel.mesh.create_mesh', create_mesh),\n"
+        "                ('gwinferno.parallel.sharding.shard_chain_state', shard_chain_state),\n"
+        "                ('gwinferno_tpu.ops.chunked.chunked_summaries', chunked_summaries)):\n"
+        "    assert load_dist_from_string(p) is want, p\n"
         "assert Spy.seen == [], Spy.seen\n"
         "print('ok')\n"
     )
@@ -164,6 +173,78 @@ def test_the_module_walk_covers_the_model_library():
     assert library <= walked
 
 
+def test_the_module_walk_covers_the_chunked_op_and_the_parallel_layer():
+    """The import checks above walk the chunked likelihood, the streamed
+    ops and the parallel layer (no JAX, no JAX package there either)."""
+    walked = {os.path.relpath(p, PKG) for p in _port_files()}
+    new = {os.path.join("ops", "chunked.py"), os.path.join("ops", "streamed.py")}
+    new |= {os.path.join("parallel", n) for n in ("__init__.py", "mesh.py", "sharding.py")}
+    assert new <= walked
+
+
+def test_chunked_and_generic_streamed_ops_on_cpu_use_the_plain_version(monkeypatch):
+    """On CPU tensors the chunked and the generic streamed ops reduce with
+    K1's plain version, the generic op's backward forms its cotangent with
+    ``lse_vjp``'s plain version, and neither kernel is touched; on a device
+    with no kernel ``lse_vjp`` raises."""
+    from gwinferno_tpu_torch.ops import fused
+    from gwinferno_tpu_torch.ops import streamed
+    from gwinferno_tpu_torch.ops.chunked import chunked_double_logsumexp
+    from gwinferno_tpu_torch.ops.streamed import make_streamed_double_logsumexp
+
+    def refuse(*args):
+        raise AssertionError("a kernel launched on a CPU tensor")
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        streamed.lse_vjp_cuda(torch.zeros(2, 3), *(torch.zeros(2),) * 4)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        streamed.lse_vjp(*(torch.zeros(2, 3, device="meta"),) + (torch.zeros(2, device="meta"),) * 4)
+    monkeypatch.setattr(fused, "dlse_cuda", refuse)
+    monkeypatch.setattr(streamed, "lse_vjp_cuda", refuse)
+    x = torch.randn(3, 12, dtype=torch.float64)
+    th = torch.tensor(0.5, dtype=torch.float64, requires_grad=True)
+    l1, l2 = chunked_double_logsumexp(lambda p: th * p["x"], {"x": x}, 3)
+    torch.autograd.grad(l1.sum() + l2.sum(), th)
+    op = make_streamed_double_logsumexp(lambda b, t: t["a"] * b["x"], {"x": x.numpy()}, block_rows=2)
+    l1, l2 = op({"a": th})
+    torch.autograd.grad(l1.sum() + l2.sum(), th)
+    assert fused.DLSE_KERNEL.launches == 0 and streamed.LSE_VJP_KERNEL.launches == 0
+
+
+@pytest.mark.cuda
+def test_chunked_and_generic_streamed_ops_launch_k1_on_the_card():
+    """On the card: the chunked op launches K1 once a chunk, and once more
+    a chunk in the backward's recomputation; the generic streamed op once a
+    block of rows, none in its backward, which launches ``lse_vjp`` once a
+    block; both equal the plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gwinferno_tpu_torch.ops.chunked import chunked_double_logsumexp
+    from gwinferno_tpu_torch.ops.fused import DLSE_KERNEL
+    from gwinferno_tpu_torch.ops.streamed import LSE_VJP_KERNEL
+    from gwinferno_tpu_torch.ops.streamed import make_streamed_double_logsumexp
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(20, 4000, generator=g, device="cuda", dtype=torch.float64)
+    th = torch.tensor([0.5, -0.3], dtype=torch.float64, device="cuda", requires_grad=True)
+    lw = th[:, None, None] * x - 0.1 * x**2
+    want = torch.logsumexp(lw, -1), torch.logsumexp(2 * lw, -1)
+    (gw,) = torch.autograd.grad(want[0].sum() + want[1].sum(), th)
+    before = DLSE_KERNEL.launches
+    l1, l2 = chunked_double_logsumexp(lambda p: th[:, None, None] * p["x"] - 0.1 * p["x"] ** 2, {"x": x}, 4)
+    assert DLSE_KERNEL.launches == before + 4
+    (gc,) = torch.autograd.grad(l1.sum() + l2.sum(), th)
+    assert DLSE_KERNEL.launches == before + 8
+    op = make_streamed_double_logsumexp(lambda b, t: t["a"] * b["x"] - 0.1 * b["x"] ** 2, {"x": x}, block_rows=8)
+    vjp_before = LSE_VJP_KERNEL.launches
+    s1, s2 = op({"a": th})
+    assert DLSE_KERNEL.launches == before + 11 and LSE_VJP_KERNEL.launches == vjp_before
+    (gs,) = torch.autograd.grad(s1.sum() + s2.sum(), th)
+    assert DLSE_KERNEL.launches == before + 11 and LSE_VJP_KERNEL.launches == vjp_before + 3
+    for a, b in ((l1, want[0]), (l2, want[1]), (s1, want[0]), (s2, want[1]), (gc, gw), (gs, gw)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0.0)
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     from gwinferno_tpu_torch.device import resolve_device
 
@@ -186,6 +267,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         MCMC(NUTS(lambda: None))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MCMC(NUTS(lambda: None), chain_method="parallel")
     with pytest.raises(RuntimeError, match="CUDA"):
         to_tensors({"x": np.zeros(3)})
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -305,6 +388,35 @@ def test_k1_kernel_matches_plain_version_on_the_card():
             assert torch.isfinite(grads[0]).all()
             gtol = 1e-4 if dtype == torch.float32 else 1e-10
             torch.testing.assert_close(grads[0], torch.nan_to_num(grads[1], nan=0.0), atol=gtol, rtol=0.0)
+
+
+@pytest.mark.cuda
+def test_lse_vjp_kernel_matches_plain_version_on_the_card():
+    """The generic streamed op's backward kernel (``lse_vjp``) against its
+    plain version: both dtypes, a chain axis, -inf entries, a row that is
+    all -inf (its ``l1``, ``l2`` -inf: a zero cotangent), a row whose
+    ``l2`` is +inf (only the ``g1`` term), rows of lengths that are not a
+    multiple of the kernel's tile; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gwinferno_tpu_torch.ops.streamed import LSE_VJP_KERNEL, _lse_vjp_torch, lse_vjp
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, tol in ((torch.float32, dict(atol=1e-6, rtol=1e-5)), (torch.float64, dict(atol=1e-15, rtol=1e-12))):
+        for shape in ((16, 8, 8000), (16, 6, 8192), (5, 1025), (3, 3)):
+            lw = 2.0 * torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+            lw[..., 1, ::3] = -torch.inf
+            lw[..., 0, :] = -torch.inf
+            l1, l2 = torch.logsumexp(lw, -1), torch.logsumexp(2 * lw, -1)
+            l2[..., 2] = torch.inf
+            g1 = torch.rand(shape[:-1], generator=g, device="cuda", dtype=dtype)
+            g2 = torch.rand(shape[:-1], generator=g, device="cuda", dtype=dtype)
+            before = LSE_VJP_KERNEL.launches
+            got = lse_vjp(lw, g1, g2, l1, l2)
+            assert LSE_VJP_KERNEL.launches == before + 1
+            want = _lse_vjp_torch(lw, g1, g2, l1, l2)
+            assert bool(torch.isfinite(got).all()) and bool((got[..., 0, :] == 0).all())
+            torch.testing.assert_close(got, want, **tol)
 
 
 def test_streamed_op_on_cpu_uses_the_plain_versions(monkeypatch):

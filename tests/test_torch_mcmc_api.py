@@ -5,7 +5,8 @@ whole run with its own adaptation), ``"parallel"`` on one device, and
 ``collective_adaptation`` (one step size per chain, one pooled mass matrix),
 float64 on the CPU at the JAX tests' limits; and the keyword surface that
 ``bench.py`` and ``examples/utils.py`` pass (``progress_bar`` on stderr
-only, ``jit_model_args``, ``mesh``, ``NUTS(init_strategy=)``)."""
+only, ``jit_model_args``, ``mesh`` (a ``parallel.Mesh``, without
+``chain_batch_size`` or ``chain_groups``), ``NUTS(init_strategy=)``)."""
 
 from types import SimpleNamespace
 
@@ -15,6 +16,7 @@ import torch
 
 from gwinferno_tpu_torch import ppl
 from gwinferno_tpu_torch.infer import HMC, MCMC, NUTS
+from gwinferno_tpu_torch.parallel import create_mesh
 from gwinferno_tpu_torch.ppl import distributions as td
 
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -114,8 +116,12 @@ def test_progress_bar_writes_to_stderr_only(capsys):
 def test_unsupported_keywords_raise():
     with pytest.raises(ValueError, match="jit_model_args"):
         MCMC(NUTS(model), jit_model_args=True, **F64)
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         MCMC(NUTS(model), mesh=object(), **F64)
+    with pytest.raises(ValueError, match="without a mesh"):
+        MCMC(NUTS(model), mesh=create_mesh(1), chain_batch_size=1, **F64)
+    with pytest.raises(ValueError, match="chain_groups"):
+        MCMC(NUTS(model), mesh=create_mesh(1), num_chains=2, chain_groups=2, **F64)
     assert NUTS(model, init_strategy=None).init_strategy is None
 
 

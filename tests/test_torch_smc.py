@@ -142,7 +142,9 @@ def test_infinite_potential_gets_minus_inf_weight_never_nan():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="M11"):
+    """A mesh that is not a ``parallel.Mesh`` is refused (the sharded runs
+    are in ``tests/test_torch_parallel.py``)."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         SMC(correlated_gaussian_model, mesh=object(), **F64)
 
 
