@@ -80,7 +80,7 @@ and with its wall time as it ends:
    float64 on the card against the CPU on a slice); its wall time and peak
    memory;
 10. the config route's sampler block with ``kernel: HMC`` through
-   ``run_config`` (dense mass, 4 chains, the trajectory length 64 times the
+   ``run_config`` (dense mass, 4 chains, the trajectory length 32 times the
    smallest step size of the run's own search): every site finite,
    divergences at most 10%;
 11. SVI on the bench flat route at one chain: ``find_map`` and ``SVI``
@@ -114,7 +114,24 @@ and with its wall time as it ends:
     gloo ranks on the one card (spawned; results come back through files):
     the data-sharded flat potential and gradient at C = 16 against the
     unsharded one;
-16. the kernels line (one JSON object), then the contract line
+16. preprocessing -> the chi_eff config route: the catalog's PE banks as a
+    PE release holds them (luminosity distance, detector-frame primary
+    mass, mass ratio, spins) written as netCDF-3 and read back by
+    ``load_catalog_netcdf3`` (equal bit for bit), then the port's
+    ``preprocess/``: source frame, mmax cut and common downsampling at the
+    defaults (``n_common``), the fiducial prior row, the chi_eff conversion
+    of the PE banks and of the found injections (every prior finite), each
+    step's seconds; the chi_p branch (the C++/OpenMP library, µs a sample,
+    threads) on a slice, held against the Python KDE path;
+    ``resample_injections`` on the converted injections as CUDA float32
+    with a card generator (the effective count, the new Neff, the prior
+    row, two calls bit for bit); the route's model (``CONFIG_VALIDATION``'s
+    mass and redshift blocks and a truncated-normal chi_eff block) on the
+    converted banks: gradient at C = 4 and 16 against a float64 CPU slice,
+    timed, K1 exactly twice a model run, one gradient under
+    ``trace_capture`` (its trace names K1); ``pdf_dict_to_xarray`` on the
+    library phase's PPDs;
+17. the kernels line (one JSON object), then the contract line
     ``{"ok": true, "device": {...}}``, last on stdout.
 
 K1 is also held against its plain version at the config route's shapes
@@ -133,7 +150,8 @@ the generic streamed op and the parallel layer are counted the same way:
 K1 ``2 (n + 1)`` times a gradient on the chunked route (``n + 1`` without
 one), once a block of rows on the generic op (and lse_vjp once a block in
 its backward), twice a model run on the mesh runs and on each of the two
-gloo ranks.
+gloo ranks, and on the chi_eff route (over its card calls at C = 4 and
+16).
 
 Every NUTS run goes through the default scheduler, the async one (16 chains
 on the flat and streamed routes, 8 on the B-spline route, 4 on the config
@@ -169,6 +187,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
+from gwinferno_tpu_torch.cosmology import PLANCK_2015_Cosmology  # noqa: E402
 from gwinferno_tpu_torch.cosmology import PLANCK_2015_LVK_Cosmology as COSMO  # noqa: E402
 from gwinferno_tpu_torch.infer import MCMC  # noqa: E402
 from gwinferno_tpu_torch.infer import NUTS  # noqa: E402
@@ -238,6 +257,15 @@ from gwinferno_tpu_torch.models.parametric.parametric import powerlaw_primary_ra
 from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryPowerlawRatio  # noqa: E402
 from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryRatio  # noqa: E402
 from gwinferno_tpu_torch.postprocess import calculations  # noqa: E402
+from gwinferno_tpu_torch.preprocess import data_collection  # noqa: E402
+from gwinferno_tpu_torch.preprocess.conversions import chieff_from_q_component_spins  # noqa: E402
+from gwinferno_tpu_torch.preprocess.conversions import chip_from_q_component_spins  # noqa: E402
+from gwinferno_tpu_torch.preprocess.native import chi_p_prior_given_chi_eff_q_batch  # noqa: E402
+from gwinferno_tpu_torch.preprocess.native import native_available  # noqa: E402
+from gwinferno_tpu_torch.preprocess.native import native_num_threads  # noqa: E402
+from gwinferno_tpu_torch.preprocess.priors import chi_p_prior_given_chi_eff_q  # noqa: E402
+from gwinferno_tpu_torch.preprocess.selection import resample_injections  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import pdf_dict_to_xarray  # noqa: E402
 from gwinferno_tpu_torch.pipeline.utils import bspline_mass_prior  # noqa: E402
 from gwinferno_tpu_torch.pipeline.utils import bspline_redshift_prior  # noqa: E402
 from gwinferno_tpu_torch.pipeline.utils import bspline_spin_prior  # noqa: E402
@@ -253,6 +281,8 @@ from gwinferno_tpu_torch.ppl.transforms import ExpTransform  # noqa: E402
 from gwinferno_tpu_torch.ppl.transforms import IntervalTransform  # noqa: E402
 from gwinferno_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
 from gwinferno_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
+from gwinferno_tpu_torch.utils.dataset import DataArray  # noqa: E402
+from gwinferno_tpu_torch.utils.prof import trace_capture  # noqa: E402
 
 # the committed catalog's size and attributes (tests/data/pe_inj_synthetic.h5)
 N_EVENTS, N_SAMPLES, N_FOUND = 69, 8000, 46770
@@ -355,16 +385,15 @@ CONFIG_INIT = {
 CONFIG_CHAINS = (4, 16)
 
 # the other engines: HMC's trajectory length is set so that a transition
-# costs at most this many leapfrogs at the step size its search finds (NUTS
-# at depth 6 costs up to 63); SVI's steps and rate (AutoDelta from
-# FIDUCIAL_INIT, then AutoNormal); SMC at the JAX package's defaults
-HMC_LEAPFROGS = 64
-# HMC's transitions (30 + 20 until the library phase came, 20 + 10 until the
-# chunked and parallel phases came); its warmup is the smoke's costliest
-# phase, and it costs the same at 15 transitions (its first ones shrink the
-# step), where one chain ended at a step that took the 1023-leapfrog cap
-# (PERF.md, PR 13), so the samples came down instead; the earlier routes'
-# are --warmup and --samples
+# costs at most this many leapfrogs at the step size its search finds (half
+# of NUTS's 63 at depth 6).  HMC's warmup is the smoke's costliest phase: its
+# dual averaging first shrinks the step at a fixed trajectory length, so its
+# cost follows this count, while fewer warmup transitions did not lower it
+# (at 15 one chain ended at a step that took the 1023-leapfrog cap; PERF.md).
+# SVI's steps and rate (AutoDelta from FIDUCIAL_INIT, then AutoNormal); SMC
+# at the JAX package's defaults
+HMC_LEAPFROGS = 32
+# HMC's transitions; the earlier routes' are --warmup and --samples
 HMC_WARMUP, HMC_SAMPLES = 20, 5
 SVI_STEPS, SVI_LR, SVI_NORMAL_STEPS, SVI_PARTICLES = 300, 0.02, 50, 4
 SMC_PARTICLES, SMC_MUTATIONS = 1024, 5
@@ -1428,14 +1457,10 @@ def bspline_route(args, catalog, gen):
 def derived_columns(bank):
     """``mass_2``, ``chi_eff`` and ``chi_p`` of a bank (host float64), from
     its primary mass, mass ratio, spin magnitudes and tilt cosines."""
-    m1, q = (np.asarray(bank[k], dtype=np.float64) for k in ("mass_1", "mass_ratio"))
-    a1, a2, c1, c2 = (np.asarray(bank[k], dtype=np.float64) for k in ("a_1", "a_2", "cos_tilt_1", "cos_tilt_2"))
-    s1, s2 = np.sqrt(np.clip(1.0 - c1**2, 0.0, None)), np.sqrt(np.clip(1.0 - c2**2, 0.0, None))
-    return {
-        "mass_2": m1 * q,
-        "chi_eff": (a1 * c1 + q * a2 * c2) / (1.0 + q),
-        "chi_p": np.maximum(a1 * s1, (4.0 * q + 3.0) / (4.0 + 3.0 * q) * q * a2 * s2),
-    }
+    m1, q, a1, a2, c1, c2 = (np.asarray(bank[k], dtype=np.float64)
+                             for k in ("mass_1", "mass_ratio", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2"))
+    return {"mass_2": m1 * q, "chi_eff": chieff_from_q_component_spins(q, a1, a2, c1, c2),
+            "chi_p": chip_from_q_component_spins(q, a1, a2, c1, c2)}
 
 
 class LibraryModel:
@@ -1617,7 +1642,8 @@ def library_nuts(catalog, models, args):
 def library_ppds(posterior, z_model):
     """The posterior-predictive distributions of the library run's draws
     (mass, independent spins, rate of z), float32 on the card: finite, and
-    the mass and spin PPDs (``rate=None``) integrate to 1 within 1e-3."""
+    the mass and spin PPDs (``rate=None``) integrate to 1 within 1e-3.
+    Returns ``{param: (pdfs (draws, grid), grid)}``."""
     k = BSPLINE_KNOTS
     cpu = {key: v.double().cpu().numpy() for key, v in posterior.items()}
     with phase(f"library PPDs of the run's {cpu['lamb'].shape[0]} draws (grids of {calculations.GRID_N})"):
@@ -1629,18 +1655,20 @@ def library_ppds(posterior, z_model):
                                            "tilt2": k["tilt_nsplines"]},
             a2_cs=cpu["a2_cs"], tilt2_cs=cpu["tilt2_cs"], device="cuda")
         rz, zs = calculations.calculate_powerlaw_spline_rate_of_z_ppds(cpu["lamb"], cpu["z_cs"], cpu["rate"], z_model)
+        ppds = {"mass_1": (mp, ms), "mass_ratio": (qp, qs), "a_1": (a1p, aa), "a_2": (a2p, aa), "cos_tilt_1": (ct1p, cc),
+                "cos_tilt_2": (ct2p, cc), "redshift": (rz, zs)}
         worst = 0.0
-        for name, pdfs, grid in (("m1", mp, ms), ("q", qp, qs), ("a1", a1p, aa), ("a2", a2p, aa), ("tilt1", ct1p, cc),
-                                 ("tilt2", ct2p, cc), ("R(z)", rz, zs)):
+        for name, (pdfs, grid) in ppds.items():
             if not np.isfinite(pdfs).all() or pdfs.shape != (cpu["lamb"].shape[0], grid.shape[0]):
                 raise AssertionError(f"PPD {name}: shape {pdfs.shape} or values not finite")
-            if name != "R(z)":
+            if name != "redshift":
                 err = float(np.abs(np.trapezoid(pdfs, grid, axis=-1) - 1.0).max())
                 worst = max(worst, err)
                 if not err < 1e-3:
                     raise AssertionError(f"PPD {name} integrates to 1 +- {err:.2e}")
         log(f"  m1, q, a1, a2, tilt1, tilt2 and R(z) PPDs finite; the six pdfs integrate to 1 within {worst:.2e}; "
             f"median R(z) at z = {zs[0]:.3f}, {zs[-1]:.3f}: {np.median(rz[:, 0]):.3f}, {np.median(rz[:, -1]):.3f}")
+    return ppds
 
 
 def _library_cases(seed):
@@ -1899,7 +1927,8 @@ def library_route(args, catalog, gen):
     """The rest of the model library on the card: the reference-style
     B-spline model with independent spins on both routes, its NUTS run and
     PPDs, every other new model class, and categorical subpopulations.
-    Returns ``(K1 launches of the NUTS run, log route gradient ms)``."""
+    Returns ``(K1 launches of the NUTS run, log route gradient ms, the
+    run's PPDs)``."""
     pedict, injdict, constants = catalog
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1922,14 +1951,14 @@ def library_route(args, catalog, gen):
     with phase("profile of one library log-route potential + gradient"):
         profile_routes({"library log": pot}, z)
     n_k1, posterior = library_nuts((pe, inj, constants), models, args)
-    library_ppds(posterior, models["z"])
+    ppds = library_ppds(posterior, models["z"])
     library_categorical((pe, inj, constants), models, params, args.seed)
     del models, pot
     torch.cuda.empty_cache()
     library_model_classes((pe, inj, constants), args.seed)
     log(f"  library phase: {time.perf_counter() - t0:.2f} s, peak memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return n_k1, grad_ms
+    return n_k1, grad_ms, ppds
 
 
 # ----------------------------------------------------------------- scheduler
@@ -2063,21 +2092,23 @@ def config_reader(num_warmup=None, num_samples=None, trajectory_length=None):
     return reader
 
 
-def config_init(num_chains, gen):
-    """``CONFIG_INIT`` jittered per chain, float64 on the generator's device."""
-    u = torch.rand(len(CONFIG_INIT), num_chains, generator=gen, device=gen.device, dtype=torch.float64)
-    return {k: c + w * (2.0 * u[i] - 1.0) for i, (k, (c, w)) in enumerate(CONFIG_INIT.items())}
+def config_init(num_chains, gen, init=CONFIG_INIT):
+    """``init`` (``CONFIG_INIT``) jittered per chain, float64 on the
+    generator's device."""
+    u = torch.rand(len(init), num_chains, generator=gen, device=gen.device, dtype=torch.float64)
+    return {k: c + w * (2.0 * u[i] - 1.0) for i, (k, (c, w)) in enumerate(init.items())}
 
 
-def config_potential(pedict, injdict, constants, device, dtype):
-    """The config model's potential on the catalog, on ``device`` in ``dtype``."""
+def config_potential(pedict, injdict, constants, device, dtype, reader=None):
+    """The potential of a parsed config's model (``CONFIG_VALIDATION``'s
+    unless ``reader`` is given) on the catalog, on ``device`` in ``dtype``."""
     args = (to_tensors(pedict, device, dtype), to_tensors(injdict, device, dtype), constants["total_inj"],
             constants["nObs"], constants["obs_time"])
-    return ModelPotential(model_from_reader(config_reader()), args, device=device, dtype=dtype)
+    return ModelPotential(model_from_reader(reader or config_reader()), args, device=device, dtype=dtype)
 
 
-def check_config_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=10000):
-    """The config route's float32 potential and gradient on the card against
+def check_config_against_cpu(pedict, injdict, constants, params, n_events=10, n_found=10000, reader=None):
+    """A config route's float32 potential and gradient on the card against
     a float64 CPU evaluation (K1's plain version) on a slice of the catalog,
     as :func:`check_against_cpu` does for the flat route."""
     pe = {k: v[:n_events] for k, v in pedict.items()}
@@ -2086,7 +2117,7 @@ def check_config_against_cpu(pedict, injdict, constants, params, n_events=10, n_
     C = next(iter(params.values())).shape[0]
     out = []
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
-        pot = config_potential(pe, inj, const, dev, dtype)
+        pot = config_potential(pe, inj, const, dev, dtype, reader)
         z = pot.unconstrain({k: v.to(dev, dtype) for k, v in params.items()}, C)
         out.append([t.double().cpu() for t in pot.value_and_grad(z)])
     (u32, g32), (u64, g64) = out
@@ -2096,7 +2127,7 @@ def check_config_against_cpu(pedict, injdict, constants, params, n_events=10, n_
     rel = float((g32 - g64).norm() / g64.norm())
     if not rel < 1e-3:
         raise AssertionError(f"float32 card gradient differs from the float64 CPU one: relative error {rel:.3e}")
-    log(f"  C={C}: card f32 vs CPU f64 on {n_events} events x {N_SAMPLES} + {n_found} injections: "
+    log(f"  C={C}: card f32 vs CPU f64 on {n_events} events x {pe['prior'].shape[1]} + {n_found} injections: "
         f"max|dU|={float((u32 - u64).abs().max()):.3e}, grad rel err={rel:.3e}")
 
 
@@ -2389,6 +2420,300 @@ def config_route(args, catalog, gen):
     ms = config_gradients(pedict, injdict, constants, gen)
     torch.cuda.empty_cache()
     return config_nuts(pedict, injdict, constants, args), ms
+
+
+# ----------------------------------------------------------------- preprocessing -> chi_eff config route (K1)
+
+# the chi_eff config route: CONFIG_VALIDATION's mass_1, mass_ratio and
+# redshift blocks and a chi_eff block, a normal truncated to [-1, 1] whose
+# location and width carry hyperpriors in the config's style
+CHIEFF_BLOCK = {
+    "model": "numpyro.distributions.TruncatedNormal",
+    "hyper_params": {
+        "loc": {"prior": "numpyro.distributions.Normal", "prior_params": {"loc": 0.0, "scale": 0.5}},
+        "scale": {"prior": "numpyro.distributions.Uniform", "prior_params": {"low": 0.02, "high": 1.0}},
+        "low": {"value": -1.0},
+        "high": {"value": 1.0},
+    },
+}
+CHIEFF_INIT = dict(CONFIG_INIT, chi_eff_loc=(0.05, 0.03), chi_eff_scale=(0.12, 0.03))
+CHIEFF_PARAMS = ["mass_1", "mass_ratio", "redshift", "chi_eff"]
+# a PE release's columns per event (detector-frame primary mass, luminosity
+# distance) and the found injections' columns
+RAW_PARAMS = ("luminosity_distance", "mass_1_det", "mass_ratio", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2")
+INJ_PARAMS = ("mass_1", "mass_ratio", "redshift", "a_1", "a_2", "cos_tilt_1", "cos_tilt_2", "prior")
+# the chi_p branch: PE samples a event (x 69 events), and how many of them
+# are held against the Python KDE path (the JAX package's test's Monte-Carlo
+# tolerance)
+CHI_P_SAMPLES, CHI_P_HELD = 40, 16
+
+
+def chieff_config():
+    """The chi_eff config route's config mapping."""
+    conf = json.loads(json.dumps(CONFIG_VALIDATION))
+    conf["label"] = "chieff_route"
+    conf["models"]["chi_eff"] = json.loads(json.dumps(CHIEFF_BLOCK))
+    return conf
+
+
+def raw_catalog(pedict):
+    """The catalog's PE banks as a PE release holds them, ``{event: {param:
+    (S,)}}``: the luminosity distance and the detector-frame primary mass
+    (``PLANCK_2015_Cosmology``, the preprocessing's default) in place of the
+    redshift and the source-frame mass."""
+    z = np.asarray(pedict["redshift"], dtype=np.float64)
+    cols = {"luminosity_distance": PLANCK_2015_Cosmology.z2DL(z), "mass_1_det": pedict["mass_1"] * (1.0 + z)}
+    cols.update({k: pedict[k] for k in RAW_PARAMS[2:]})
+    return {f"GW{i:06d}": {k: np.asarray(cols[k][i], dtype=np.float64) for k in RAW_PARAMS} for i in range(len(z))}
+
+
+def write_catalog_netcdf3(path, raw):
+    """Write ``raw`` (``{event: {param: (S,)}}``) as a netCDF-3 catalog in the
+    layout ``load_catalog_netcdf3`` reads: a ``param`` name table of
+    characters, a ``sample`` index and one ``(param, sample)`` float64
+    variable per event."""
+    from scipy.io import netcdf_file
+
+    events = list(raw)
+    params = list(raw[events[0]])
+    n = len(raw[events[0]][params[0]])
+    width = max(len(p) for p in params)
+    with netcdf_file(path, "w") as f:
+        f.createDimension("param", len(params))
+        f.createDimension("sample", n)
+        f.createDimension("strlen", width)
+        f.createVariable("param", "c", ("param", "strlen"))[:] = np.array([list(p.ljust(width)) for p in params], "S1")
+        f.createVariable("sample", "i4", ("sample",))[:] = np.arange(n)
+        for ev in events:
+            f.createVariable(ev, "d", ("param", "sample"))[:] = np.stack([raw[ev][p] for p in params])
+
+
+def preprocess_catalog(pedict, injdict, constants, workdir, dc=data_collection):
+    """A raw catalog through the preprocessing of ``dc`` (a data-collection
+    module): the PE banks as a PE release (:func:`raw_catalog`) written as
+    netCDF-3 and read back (equal bit for bit), source frame, the mmax cut
+    and the common downsampling at the defaults, the fiducial prior row
+    (euclidean), then the effective-spin conversion of the PE banks and of
+    the found injections (packed as a ``(param, injection)`` DataArray with
+    ``total_generated`` and ``analysis_time``) to ``CHIEFF_PARAMS``.
+    Returns ``(PE DataArray before the spin conversion, after it, the
+    converted injections, wall seconds per step)``."""
+    secs = {}
+    raw = raw_catalog(pedict)
+    path = os.path.join(workdir, "catalog.nc")
+    t0 = time.perf_counter()
+    write_catalog_netcdf3(path, raw)
+    arr = dc.load_catalog_netcdf3(path)["posteriors"]
+    secs["netCDF-3 write + read"] = time.perf_counter() - t0
+    if list(arr.coords["event"]) != list(raw) or list(arr.coords["param"]) != list(RAW_PARAMS):
+        raise AssertionError("the netCDF-3 round trip changed the event or parameter names")
+    for i, ev in enumerate(raw):
+        if not all(np.array_equal(arr.data[i, j], raw[ev][p], equal_nan=True) for j, p in enumerate(RAW_PARAMS)):
+            raise AssertionError(f"the netCDF-3 round trip changed event {ev}'s samples")
+    catalog = {ev: {"samples": {p: arr.sel(event=ev, param=p).data for p in RAW_PARAMS}} for ev in raw}
+    t0 = time.perf_counter()
+    pe = dc.processed_catalog_dataset_from_dict(catalog)
+    secs["source frame, mmax cut, downsampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pe = dc.append_prior_to_processed_catalog(pe)["posteriors"]
+    secs["prior row"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pe_eff = dc.convert_component_spins_to_chieff(pe, CHIEFF_PARAMS)
+    secs["chi_eff conversion, PE"] = time.perf_counter() - t0
+    inj = dc.DataArray(
+        np.stack([np.asarray(injdict[p], dtype=np.float64) for p in INJ_PARAMS]), ("param", "injection"),
+        coords={"param": np.array(INJ_PARAMS), "injection": np.arange(len(injdict["prior"]))},
+        attrs={"total_generated": constants["total_inj"], "analysis_time": constants["obs_time"]},
+    )
+    t0 = time.perf_counter()
+    inj_eff = dc.convert_component_spins_to_chieff(inj, CHIEFF_PARAMS, injections=True)
+    secs["chi_eff conversion, injections"] = time.perf_counter() - t0
+    return pe, pe_eff, inj_eff, secs
+
+
+def banks_of(pe_eff, inj_eff):
+    """The route's banks from the converted DataArrays: ``(pedict {param:
+    (E, S)}, injdict {param: (N,)}, constants)``, pulled out by label."""
+    names = CHIEFF_PARAMS + ["prior"]
+    pedict = {p: np.ascontiguousarray(pe_eff.sel(param=p).data) for p in names}
+    injdict = {p: np.ascontiguousarray(inj_eff.sel(param=p).data) for p in names}
+    constants = {"total_inj": float(inj_eff.attrs["total_generated"]), "obs_time": float(inj_eff.attrs["analysis_time"]),
+                 "nObs": pedict["prior"].shape[0]}
+    return pedict, injdict, constants
+
+
+def chi_p_branch(pe, seed):
+    """The chi_p branch of the spin conversion (the C++/OpenMP library) on
+    ``CHI_P_SAMPLES`` samples of each event: its wall, and
+    ``CHI_P_HELD`` of its conditional prior values against the Python KDE
+    path within the Monte-Carlo tolerance (rtol 0.2, atol 0.05).  Returns
+    ``(samples, µs a sample, threads)``."""
+    if not native_available():
+        raise AssertionError("the chi_p prior library did not build (g++ with OpenMP expected)")
+    part = DataArray(pe.data[:, :, :CHI_P_SAMPLES], pe.dims, coords=dict(pe.coords), attrs=pe.attrs)
+    t0 = time.perf_counter()
+    out = data_collection.convert_component_spins_to_chieff(part, CHIEFF_PARAMS + ["chi_p"])
+    secs = time.perf_counter() - t0
+    n = part.data.shape[0] * part.data.shape[2]
+    if not np.isfinite(out.sel(param="prior").data).all():
+        raise AssertionError("chi_p branch: a prior value is not finite")
+    pick = np.linspace(0, n - 1, CHI_P_HELD).astype(int)
+    chi_p, chi_eff, q = (out.sel(param=p).data.ravel()[pick] for p in ("chi_p", "chi_eff", "mass_ratio"))
+    native = chi_p_prior_given_chi_eff_q_batch(chi_p, chi_eff, q)
+    np.random.seed(seed)
+    python = np.array([float(chi_p_prior_given_chi_eff_q(chi_p[i], chi_eff[i], q[i])) for i in range(CHI_P_HELD)])
+    np.testing.assert_allclose(native, python, rtol=0.2, atol=0.05)
+    threads = native_num_threads()
+    log(f"  chi_p branch: {n} samples in {secs:.3f} s ({secs / n * 1e6:.1f} µs a sample, {threads} threads); "
+        f"{CHI_P_HELD} values within rtol 0.2, atol 0.05 of the Python KDE path (max |diff| "
+        f"{float(np.abs(native - python).max()):.3e})")
+    return n, secs / n * 1e6, threads
+
+
+def route_population(reader, point, rows, device, dtype):
+    """The route's population density at ``point`` (``{site: float}``) as
+    ``model_prob(bank)`` over a ``(param, injection)`` tensor whose rows
+    ``rows`` names: each block's class with its pinned values and the
+    point's sampled ones, the log-densities summed, exponentiated."""
+    dists = {}
+    for param, spec in reader.models.items():
+        kw = {}
+        for hp in spec.params:
+            key = f"{param}_{hp}"
+            kw[hp] = torch.tensor(point[key], dtype=dtype, device=device) if key in point else reader.priors[key]
+        dists[param] = spec.model(**kw)
+
+    def model_prob(bank):
+        return torch.exp(sum(ppl_dist.population_log_prob(d, bank[rows[p]]) for p, d in dists.items()))
+
+    return model_prob
+
+
+def check_resampling(reader, inj_eff, seed):
+    """``resample_injections`` on the converted injection bank as CUDA
+    float32 with a card generator, toward the route's population at
+    ``CHIEFF_INIT``'s centres: ``n_eff_bank`` equal to the float64 host
+    formula on the same weights, the new ``Neff`` within 1e-6 of
+    ``mu^2 / var_mu``, the new prior row target / mu to 1e-5, two calls with
+    one seed equal bit for bit.  Returns ``(n_eff_bank, Neff, ms a call)``."""
+    rows = {str(p): i for i, p in enumerate(inj_eff.coords["param"])}
+    point = {k: c for k, (c, _) in CHIEFF_INIT.items()}
+    model_prob = route_population(reader, point, rows, "cuda", torch.float32)
+    bank = torch.as_tensor(inj_eff.data, dtype=torch.float32, device="cuda")
+    n_draw = float(inj_eff.attrs["total_generated"])
+    gen = torch.Generator(device="cuda")
+    outs = []
+    for _ in range(2):
+        gen.manual_seed(seed)
+        outs.append(resample_injections(gen, model_prob, bank, n_draw, rows))
+    (new, n_eff, neff_new), (again, n_eff2, _) = outs
+    if not (torch.equal(new, again) and n_eff == n_eff2):
+        raise AssertionError("resample_injections: two calls with one seed differ")
+    w = (model_prob(bank) / bank[rows["prior"]]).double().cpu().numpy()
+    w_sum, w_sumsq = w.sum(), np.square(w).sum()
+    if n_eff != int(w_sum**2 // w_sumsq) or tuple(new.shape) != (bank.shape[0], n_eff):
+        raise AssertionError(f"n_eff_bank {n_eff} (bank {tuple(new.shape)}), host formula {int(w_sum**2 // w_sumsq)}")
+    mu = w_sum / n_draw
+    var_mu = w_sumsq / n_draw**2 - mu**2 / n_draw
+    np.testing.assert_allclose(float(neff_new), mu**2 / var_mu, rtol=1e-6)
+    want = (model_prob(new).double() / mu).cpu().numpy()
+    np.testing.assert_allclose(new[rows["prior"]].double().cpu().numpy(), want, rtol=1e-5)
+    gen.manual_seed(seed)
+    ms = call_ms(lambda: resample_injections(gen, model_prob, bank, n_draw, rows))
+    log(f"  resampling (f32 on the card): n_eff_bank {n_eff} of {bank.shape[1]} (the float64 host formula's), Neff "
+        f"{float(neff_new):.1f} (mu {mu:.4e}), prior row target/mu, two calls equal bit for bit; {ms:.3f} ms a call")
+    return n_eff, float(neff_new), ms
+
+
+def chieff_gradients(pedict, injdict, constants, reader, gen, workdir):
+    """The chi_eff route's potential and gradient for each of
+    ``CONFIG_CHAINS``: against a float64 CPU evaluation on a slice, K1
+    exactly twice a model run and K2, K3 and lse_vjp never (counted over
+    every card call: a first one and 10 timed), timed (CUDA events, median
+    of 10); then one gradient under ``trace_capture``, whose trace must
+    name K1.  Returns ``(K1 launches, {C: ms})``."""
+    with phase("chi_eff route: model build"):
+        pot = config_potential(pedict, injdict, constants, "cuda", torch.float32, reader)
+        torch.cuda.synchronize()
+        log(f"  sites {pot.names} ({pot.dim} unconstrained coordinates), banks {pedict['prior'].shape} + "
+            f"{injdict['prior'].shape}")
+    ms, launches = {}, 0
+    for C in CONFIG_CHAINS:
+        params = config_init(C, gen, CHIEFF_INIT)
+        with phase(f"chi_eff route: reference check, C={C}"):
+            check_config_against_cpu(pedict, injdict, constants, params, reader=reader)
+        with phase(f"chi_eff route: potential + gradient, C={C}"):
+            z = pot.unconstrain({k: v.float() for k, v in params.items()}, C)
+            _zero_counts()
+            with ModelRuns() as runs:
+                u, g = pot.value_and_grad(z)
+                if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all())
+                        and bool((u.abs() < 1e30).all())):
+                    raise AssertionError(f"chi_eff route: potential or gradient not finite or on a wall at C={C}: {u}")
+                ms[C] = float(np.median([call_ms(lambda: pot.value_and_grad(z)) for _ in range(10)]))
+            launches += _check_k1_only(f"the chi_eff route, C={C}", runs.runs)
+            log(f"  one batched potential + gradient at C={C}: {ms[C]:.3f} ms (CUDA events around each call, "
+                "median of 10)")
+    logdir = os.path.join(workdir, "trace")
+    with trace_capture(logdir):
+        pot.value_and_grad(z)
+        torch.cuda.synchronize()
+    traces = [n for n in os.listdir(logdir) if n.endswith(".json")]
+    with open(os.path.join(logdir, traces[0])) as f:
+        named = "dlse_kernel" in f.read()
+    if len(traces) != 1 or not named:
+        raise AssertionError(f"trace_capture wrote {traces}; K1 (dlse_kernel) named in it: {named}")
+    log(f"  trace_capture around one gradient (C={C}): {traces[0]}, names dlse_kernel")
+    return launches, ms
+
+
+def check_containers(ppds):
+    """``pdf_dict_to_xarray`` on the library phase's PPDs, handed over as
+    CUDA tensors: dims, shapes, values and grids."""
+    pdfs = {k: torch.as_tensor(p, device="cuda") for k, (p, _) in ppds.items()}
+    grids = {k: torch.as_tensor(g, device="cuda") for k, (_, g) in ppds.items()}
+    n_draws = next(iter(ppds.values()))[0].shape[0]
+    ds = pdf_dict_to_xarray(pdfs, grids, n_draws)
+    for k, (p, g) in ppds.items():
+        arr = ds[k]
+        if arr.dims != ("draw", f"{k}_grid") or arr.shape != p.shape or not np.array_equal(arr.data, p):
+            raise AssertionError(f"pdf_dict_to_xarray: {k} has dims {arr.dims}, shape {arr.shape}")
+        if not (np.array_equal(arr.coords[f"{k}_grid"], g) and np.array_equal(arr.coords["draw"], np.arange(n_draws))):
+            raise AssertionError(f"pdf_dict_to_xarray: {k}'s coordinates differ from its grid")
+    log(f"  pdf_dict_to_xarray on the library PPDs ({', '.join(ds.keys())}; {n_draws} draws): dims, values and grids "
+        "equal")
+
+
+def chieff_route(args, catalog, ppds, gen):
+    """Preprocessing -> the chi_eff config route: the raw catalog through the
+    port's preprocessing, the chi_p branch, resampling on the card, the
+    route's gradients (K1) and the result containers.  Returns ``(K1
+    launches, {C: gradient ms}, n_common)``."""
+    pedict, injdict, constants = catalog
+    reader = ConfigReader()
+    reader.parse_dict(chieff_config())
+    with tempfile.TemporaryDirectory() as workdir:
+        with phase("preprocessing: raw catalog -> source frame -> prior row -> chi_eff"):
+            pe, pe_eff, inj_eff, secs = preprocess_catalog(pedict, injdict, constants, workdir)
+            n_common = pe.data.shape[-1]
+            m1 = pe.sel(param="mass_1").data
+            if not (m1 <= 100.0).all():
+                raise AssertionError("a kept mass_1 sample is above mmax")
+            bad = [int((~np.isfinite(a.sel(param="prior").data)).sum()) for a in (pe_eff, inj_eff)]
+            if any(bad):
+                raise AssertionError(f"converted priors not finite: {bad[0]} PE samples, {bad[1]} injections")
+            log(f"  netCDF-3 round trip equal bit for bit; n_common {n_common} of {N_SAMPLES} samples (mmax 100, "
+                f"max_samples 10000); every kept mass_1 <= 100; converted priors finite ({pe_eff.shape} PE, "
+                f"{inj_eff.shape} injections)")
+            log("  seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+        with phase("preprocessing: the chi_p branch"):
+            chi_p_branch(pe, args.seed)
+        with phase("resampling the converted injections on the card"):
+            check_resampling(reader, inj_eff, args.seed)
+        launches, ms = chieff_gradients(*banks_of(pe_eff, inj_eff), reader, gen, workdir)
+    with phase("containers"):
+        check_containers(ppds)
+    return launches, ms, n_common
 
 
 # ----------------------------------------------------------------- chunked route (ops/chunked.py)
@@ -2848,7 +3173,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     config_launches, config_ms = config_route(args, (pedict, injdict, constants), gen)
     torch.cuda.empty_cache()
-    library_launches, library_ms = library_route(args, (pedict, injdict, constants), gen)
+    library_launches, library_ms, ppds = library_route(args, (pedict, injdict, constants), gen)
     torch.cuda.empty_cache()
     hmc_launches = config_hmc(pedict, injdict, constants, args)
     svi_launches, svi_ms = svi_route((pedict, injdict, constants), z_model, args)
@@ -2860,6 +3185,7 @@ def main(argv=None):
     generic = generic_streamed_phase(catalog, z_model, init, gen)
     world_one = world_one_phase(catalog, z_model, init, args, async_run)
     two_ranks = two_rank_phase(catalog, z_model, init)
+    chieff_launches, chieff_ms, n_common = chieff_route(args, catalog, ppds, gen)
 
     pe, inj = k1["flat_pe"], k1["flat_inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
@@ -2892,6 +3218,12 @@ def main(argv=None):
             # gradient at C = 8 (its linear route launches none)
             "library_route_launches": library_launches,
             "library_route_grad_ms": library_ms,
+            # the chi_eff config route on the preprocessed catalog (its PE
+            # banks cut to n_common samples): its launches over the card
+            # calls at C = 4 and 16 (two a model run), its gradient ms
+            "chieff_route_launches": chieff_launches,
+            "chieff_route_grad_ms": {str(C): v for C, v in chieff_ms.items()},
+            "chieff_route_n_common": n_common,
             # SMC's two calls at 1024 particles (kernel, plain, library, bound)
             "smc_ms": k1["smc_pe"]["ms"] + k1["smc_inj"]["ms"],
             "smc_plain_ms": k1["smc_pe"]["plain_ms"] + k1["smc_inj"]["plain_ms"],

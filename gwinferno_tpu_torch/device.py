@@ -1,10 +1,12 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the way back to the
+host."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "host_array"]
 
 
 def resolve_device(device=None):
@@ -20,3 +22,9 @@ def resolve_device(device=None):
             "CUDA is not available; pass device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+def host_array(v):
+    """A tensor on any device (detached, copied to the host), or anything
+    numpy takes, as a numpy array."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)

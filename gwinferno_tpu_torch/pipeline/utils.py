@@ -1,5 +1,6 @@
-"""Loading the PE + injection catalog, the B-spline model setup and the
-B-spline coefficient priors.
+"""The B-spline run's parser, loading the PE + injection catalog, the
+B-spline model setup, the B-spline coefficient priors and the result
+containers.
 
 Counterpart of ``gwinferno_tpu/pipeline/utils.py``.  The loader returns host
 numpy dicts; :func:`to_tensors` moves them to the asked device once.  The
@@ -11,11 +12,13 @@ sites whose values carry a leading chain axis.
 from __future__ import annotations
 
 import functools
+from argparse import ArgumentParser
 
 import numpy as np
 import torch
 
 from .. import ppl
+from ..device import host_array
 from ..device import resolve_device
 from ..models.bsplines.smoothing import apply_difference_prior
 from ..models.bsplines.smoothing import prior_precision_cholesky
@@ -25,6 +28,7 @@ from ..utils.dataset import Dataset
 from ..utils.dataset import load_groups
 
 __all__ = [
+    "load_base_parser",
     "load_pe_and_injections_as_dict",
     "to_tensors",
     "setup_bspline_mass_models",
@@ -34,7 +38,57 @@ __all__ = [
     "bspline_spin_prior",
     "bspline_redshift_prior",
     "posterior_dict_to_xarray",
+    "pdf_dict_to_xarray",
 ]
+
+
+def load_base_parser():
+    """The B-spline run's command-line parser, with the JAX package's
+    arguments and defaults (``pipeline/parser.py``'s ``load_base_parser`` is
+    the config run's)."""
+    parser = ArgumentParser()
+    parser.add_argument("--pe-inj-file", type=str)
+    parser.add_argument("--run-label", type=str)
+    parser.add_argument("--result-dir", type=str)
+    parser.add_argument("--m-nsplines", type=int, default=50)
+    parser.add_argument("--q-nsplines", type=int, default=30)
+    parser.add_argument("--a-nsplines", type=int, default=16)
+    parser.add_argument("--tilt-nsplines", type=int, default=16)
+    parser.add_argument("--z-nsplines", type=int, default=20)
+    parser.add_argument("--fused", action="store_true", default=False,
+                        help="run the B-spline log-weights and their reductions through the fused CUDA kernel "
+                        "(K3, ops/csrc/flw.cu)")
+    parser.add_argument("--mmin", type=float, default=3.0)
+    parser.add_argument("--mmax", type=float, default=100.0)
+    parser.add_argument("--chains", type=int, default=1)
+    parser.add_argument("--samples", type=int, default=1500)
+    parser.add_argument("--thinning", type=int, default=1)
+    parser.add_argument("--warmup", type=int, default=1000)
+    parser.add_argument("--skip-inference", action="store_true", default=False)
+    parser.add_argument("--rngkey", type=int, default=1)
+    parser.add_argument("--save-plots", type=bool, default=True)
+    parser.add_argument("--max-steps-per-call", type=int, default=None,
+                        help="segment the MCMC into calls of this many transitions")
+    parser.add_argument("--target-accept", type=float, default=0.8,
+                        help="NUTS dual-averaging target acceptance probability")
+    parser.add_argument("--max-tree-depth", type=int, default=10)
+    parser.add_argument("--chain-scheduler", type=str, default="auto", choices=["auto", "sync", "async"],
+                        help="MCMC chain scheduler (auto = continuous batching when eligible)")
+    parser.add_argument("--reparam", type=str, default="centered", choices=["centered", "whitened"],
+                        help="B-spline coefficient-prior parameterization: 'centered' (iid Normal sites + "
+                        "smoothing factors) or 'whitened' (standard normals mapped through the prior-precision "
+                        "Cholesky factor: the same prior, isotropic sampling geometry)")
+    parser.add_argument("--m-tau", type=float, default=1.0,
+                        help="P-spline smoothing strength, primary-mass coefficients")
+    parser.add_argument("--q-tau", type=float, default=1.0,
+                        help="P-spline smoothing strength, mass-ratio coefficients")
+    parser.add_argument("--a-tau", type=float, default=25.0,
+                        help="P-spline smoothing strength, spin-magnitude coefficients")
+    parser.add_argument("--ct-tau", type=float, default=25.0,
+                        help="P-spline smoothing strength, spin-tilt coefficients")
+    parser.add_argument("--z-tau", type=float, default=1.0,
+                        help="P-spline smoothing strength, redshift coefficients")
+    return parser
 
 
 def load_pe_and_injections_as_dict(file, ignore=None):
@@ -212,7 +266,20 @@ def posterior_dict_to_xarray(posterior_dict, subpop_names=None):
     ...)`` and a ``draw`` coordinate, the JAX package's layout."""
     variables = {}
     for k, v in posterior_dict.items():
-        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        v = host_array(v)
         dims = ("draw",) + tuple(f"{k}_dim{i}" for i in range(v.ndim - 1))
         variables[k] = DataArray(v, dims, coords={"draw": np.arange(v.shape[0])})
+    return Dataset(variables)
+
+
+def pdf_dict_to_xarray(pdf_dict, param_dict, n_draws, subpop_names=None):
+    """Pack PPD grids ``{name: (draws, grid)}`` with their grids ``{name:
+    (grid,)}`` (tensors on any device, or arrays) into a :class:`Dataset`
+    with dims ``("draw", "{name}_grid")`` and both coordinates, the JAX
+    package's layout."""
+    variables = {}
+    for k, pdfs in pdf_dict.items():
+        pdfs = host_array(pdfs)
+        variables[k] = DataArray(pdfs, ("draw", f"{k}_grid"),
+                                 coords={"draw": np.arange(pdfs.shape[0]), f"{k}_grid": host_array(param_dict[k])})
     return Dataset(variables)

@@ -17,23 +17,20 @@ loads all the same, and the resumed run then draws from its own
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from ..device import host_array
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
 
 _STATE_FIELDS = ["z", "pe", "grad", "energy", "accept_prob", "num_steps", "diverging", "tree_depth"]
 
 
-def _numpy(v):
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-
-
 def save_checkpoint(path, mcmc):
     """Write ``mcmc.post_warmup_state`` (set by a completed ``run``) to an npz."""
     st = mcmc.post_warmup_state
-    arrays = {f"state_{name}": _numpy(v) for name, v in zip(_STATE_FIELDS, st["state"])}
+    arrays = {f"state_{name}": host_array(v) for name, v in zip(_STATE_FIELDS, st["state"])}
     for key in ("inverse_mass_matrix", "mass_chol", "step_size", "rng_key"):
-        arrays[key] = _numpy(st[key])
+        arrays[key] = host_array(st[key])
     np.savez(path, **arrays)
 
 

@@ -25,6 +25,27 @@ class DataArray:
         self.coords = dict(coords or {})
         self.attrs = dict(attrs or {})
 
+    def sel(self, **labels):
+        """Select by coordinate label along named dims (exact match; a
+        missing label raises ``KeyError``).  Each selected dim is dropped."""
+        out = self.data
+        dims = list(self.dims)
+        for dim, label in labels.items():
+            axis = dims.index(dim)
+            idx = np.nonzero(np.asarray(self.coords[dim]) == label)[0]
+            if len(idx) == 0:
+                raise KeyError(f"label {label!r} not found in dim {dim!r}")
+            out = np.take(out, idx[0], axis=axis)
+            dims.pop(axis)
+        return DataArray(out, dims, {d: self.coords[d] for d in dims if d in self.coords}, self.attrs)
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.data, dtype=dtype)
+
 
 class Dataset:
     """Dict of DataArrays + shared attrs."""
@@ -35,6 +56,15 @@ class Dataset:
 
     def __getitem__(self, name):
         return self.variables[name]
+
+    def __setitem__(self, name, value):
+        self.variables[name] = value
+
+    def __contains__(self, name):
+        return name in self.variables
+
+    def keys(self):
+        return self.variables.keys()
 
     def to_hdf5(self, path_or_group, group=None):
         """Write to a file path (replacing it) or into an open h5py group,

@@ -120,15 +120,14 @@ def test_config_dotted_paths_resolve_onto_the_port():
 
 
 def test_jax_package_paths_never_fall_back_to_the_jax_package():
-    """A dotted path of the JAX package that the port lacks (``preprocess``,
-    ``utils/host.py``), or a JAX path, raises ImportError without any attempt
-    to import the JAX package; one that the port has resolves onto the port
-    (the chunked op and the parallel layer since they were ported)."""
+    """A dotted path of the JAX package that the port lacks
+    (``utils/host.py``), or a JAX path, raises ImportError without any
+    attempt to import the JAX package; one that the port has resolves onto
+    the port (the chunked op and the parallel layer since they were ported,
+    and preprocessing)."""
     code = _SPY + (
         "from gwinferno_tpu_torch.pipeline.parser import load_dist_from_string\n"
-        "for p in ('gwinferno_tpu.preprocess.priors.chi_effective_prior_from_aligned_spins',\n"
-        "          'gwinferno.preprocess.priors.Di', 'gwinferno_tpu.utils.host.xp_for',\n"
-        "          'numpyro.distributions.StudentT', 'jax.numpy.sum'):\n"
+        "for p in ('gwinferno_tpu.utils.host.xp_for', 'numpyro.distributions.StudentT', 'jax.numpy.sum'):\n"
         "    try:\n"
         "        load_dist_from_string(p)\n"
         "    except ImportError as e:\n"
@@ -140,9 +139,12 @@ def test_jax_package_paths_never_fall_back_to_the_jax_package():
         "    assert load_dist_from_string(p) is find_map, p\n"
         "from gwinferno_tpu_torch.ops.chunked import chunked_summaries\n"
         "from gwinferno_tpu_torch.parallel import create_mesh, shard_chain_state\n"
+        "from gwinferno_tpu_torch.preprocess.priors import Di, chi_effective_prior_from_aligned_spins\n"
         "for p, want in (('gwinferno_tpu.parallel.mesh.create_mesh', create_mesh),\n"
         "                ('gwinferno.parallel.sharding.shard_chain_state', shard_chain_state),\n"
-        "                ('gwinferno_tpu.ops.chunked.chunked_summaries', chunked_summaries)):\n"
+        "                ('gwinferno_tpu.ops.chunked.chunked_summaries', chunked_summaries),\n"
+        "                ('gwinferno_tpu.preprocess.priors.chi_effective_prior_from_aligned_spins',\n"
+        "                 chi_effective_prior_from_aligned_spins), ('gwinferno.preprocess.priors.Di', Di)):\n"
         "    assert load_dist_from_string(p) is want, p\n"
         "assert Spy.seen == [], Spy.seen\n"
         "print('ok')\n"
@@ -180,6 +182,77 @@ def test_the_module_walk_covers_the_chunked_op_and_the_parallel_layer():
     new = {os.path.join("ops", "chunked.py"), os.path.join("ops", "streamed.py")}
     new |= {os.path.join("parallel", n) for n in ("__init__.py", "mesh.py", "sharding.py")}
     assert new <= walked
+
+
+def test_the_module_walk_covers_preprocessing_and_the_utility_remainders():
+    """The import checks above walk the preprocessing modules, the plotters
+    and the utilities (no JAX, no JAX package, h5py and matplotlib lazily)."""
+    walked = {os.path.relpath(p, PKG) for p in _port_files()}
+    new = {os.path.join("preprocess", n) for n in ("__init__.py", "conversions.py", "priors.py", "native.py",
+                                                   "selection.py", "data_collection.py")}
+    new |= {os.path.join("postprocess", "plot.py"), os.path.join("pipeline", "utils.py"),
+            os.path.join("utils", "dataset.py"), os.path.join("utils", "prof.py")}
+    assert new <= walked
+
+
+def test_preprocessing_runs_without_h5py_and_matplotlib():
+    """With h5py and matplotlib absent, preprocessing and the plotters import,
+    the spin conversion and resampling run, and only the functions that
+    read HDF5 or draw raise ImportError."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'h5py', 'matplotlib', 'gwinferno_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from gwinferno_tpu_torch.preprocess import data_collection, selection\n"
+        "from gwinferno_tpu_torch.postprocess import plot\n"
+        "from gwinferno_tpu_torch.utils.dataset import DataArray\n"
+        "rng = np.random.default_rng(0)\n"
+        "names = ['mass_ratio', 'a_1', 'a_2', 'cos_tilt_1', 'cos_tilt_2', 'prior']\n"
+        "data = np.stack([rng.uniform(0.3, 0.9, 50), *rng.uniform(0.1, 0.9, (2, 50)), *rng.uniform(-0.9, 0.9, (2, 50)),\n"
+        "                 np.ones(50)])\n"
+        "arr = DataArray(data, ('param', 'injection'), coords={'param': np.array(names)})\n"
+        "out = data_collection.convert_component_spins_to_chieff(arr, ['mass_ratio', 'chi_eff'], injections=True)\n"
+        "assert np.isfinite(out.data).all()\n"
+        "bank = torch.tensor(out.data)\n"
+        "selection.resample_injections(torch.Generator(), lambda d: d[0], bank, 100.0, {'prior': 2})\n"
+        "for fn, args in ((selection.get_o3_cumulative_injection_dict, ('x.h5', [])),\n"
+        "                 (data_collection.load_idata_file, ('x.h5',)), (plot.plot_pdf, (np.ones(3), np.ones((2, 3)), 'x'))):\n"
+        "    try:\n"
+        "        fn(*args)\n"
+        "    except ImportError:\n"
+        "        continue\n"
+        "    raise AssertionError(fn.__name__)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chi_p_library_builds_into_the_ports_build_directory(tmp_path, monkeypatch):
+    """The port's copy of the C++ source builds into its own build
+    directory (``_build/`` by default), never into the JAX package's
+    ``native/``."""
+    import shutil
+
+    from gwinferno_tpu_torch.ops._build import BUILD_DIR
+    from gwinferno_tpu_torch.preprocess import native
+
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain")
+    assert os.path.dirname(native.library_path()) == BUILD_DIR == os.path.join(PKG, "_build")
+    assert native.SOURCE == os.path.join(PKG, "preprocess", "csrc", "chi_p_prior.cpp")
+    jax_side = sorted(os.listdir(os.path.join(ROOT, "native")))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    native._load.cache_clear()
+    try:
+        assert native.native_available()
+        assert os.listdir(tmp_path) == [os.path.basename(native.library_path())]
+    finally:
+        native._load.cache_clear()
+    assert sorted(os.listdir(os.path.join(ROOT, "native"))) == jax_side
 
 
 def test_chunked_and_generic_streamed_ops_on_cpu_use_the_plain_version(monkeypatch):
