@@ -53,7 +53,8 @@ and with its wall time as it ends:
    geometry and registers; the fused route against a float64 CPU
    evaluation on a slice of the catalog, then
    an 8-chain NUTS run on the fused route through ``run_bspline_analysis``
-   (target 0.9, diagonal mass, depth 6);
+   (target 0.9, diagonal mass, depth 6), and its posterior's PPDs through
+   the B-spline example's ``bspline_ppds``;
 8. the config route: the model of ``examples/config_files/config_validation.yml``
    (its parsed form, ``CONFIG_VALIDATION``: smoothed-break powerlaw m1,
    powerlaw q, powerlaw redshift, the ``min_neff`` cut and the
@@ -103,7 +104,8 @@ and with its wall time as it ends:
     backward kernel ``lse_vjp`` (``ops/csrc/lse_vjp.cu``) against its plain
     version on each block shape the op launches it with, float32 and
     float64, with edge rows, two launches bit for bit, kernel, plain and
-    bound times; then the bench chain as a torch ``logw_fn`` on both
+    bound times beside an empty kernel's of the same grid (the launch floor
+    on the same timer); then the bench chain as a torch ``logw_fn`` on both
     streamed banks at C = 1 and 16, against K2's op and the flat
     logsumexps; K1 once a block of 8 rows, lse_vjp once a block in the
     backward;
@@ -131,7 +133,14 @@ and with its wall time as it ends:
     timed, K1 exactly twice a model run, one gradient under
     ``trace_capture`` (its trace names K1); ``pdf_dict_to_xarray`` on the
     library phase's PPDs;
-17. the kernels line (one JSON object), then the contract line
+17. the README's powerlaw+peak quick-start example
+    (``gwinferno_tpu_torch/examples/``, :func:`plpk_example_route`) on the
+    same catalog: its model's gradient at C = 4 and 16 against a float64
+    CPU slice, timed, profiled at C = 16, then a 5 + 5 NUTS run at 4
+    chains through ``run_powerlawpeak_analysis`` (the example's parser,
+    depth 6), its Beta shape and posterior-predictive sites, and
+    ``powerlawpeak_ppds``; K1 exactly twice a model run;
+18. the kernels line (one JSON object), then the contract line
     ``{"ok": true, "device": {...}}``, last on stdout.
 
 K1 is also held against its plain version at the config route's shapes
@@ -150,15 +159,16 @@ the generic streamed op and the parallel layer are counted the same way:
 K1 ``2 (n + 1)`` times a gradient on the chunked route (``n + 1`` without
 one), once a block of rows on the generic op (and lse_vjp once a block in
 its backward), twice a model run on the mesh runs and on each of the two
-gloo ranks, and on the chi_eff route (over its card calls at C = 4 and
-16).
+gloo ranks, on the chi_eff route (over its card calls at C = 4 and 16)
+and on the powerlaw+peak example (its gradients and its NUTS run).
 
 Every NUTS run goes through the default scheduler, the async one (16 chains
 on the flat and streamed routes, 8 on the B-spline route, 4 on the config
-route); each checks that its model runs are those outside the transition
-loop (a run with no transitions from the same seed and starts) plus the
-async formula for its ``num_steps``, one host read a round, and prints the
-sync formula's count beside it.
+route and the powerlaw+peak example); each checks that its model runs are
+those outside the transition loop (a run with no transitions from the same
+seed and starts) plus the async formula for its ``num_steps`` over its
+segments, one host read a round (and one a segment under a progress bar),
+and prints the sync formula's count beside it.
 
 Any failure raises, with a traceback and a non-zero exit code; no phase
 catches its own failure.  Without CUDA the script exits non-zero before
@@ -218,6 +228,7 @@ from gwinferno_tpu_torch.ops.streamed import STREAMED_BWD_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import STREAMED_FWD_KERNEL  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import _lse_vjp_torch  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import lse_vjp  # noqa: E402
+from gwinferno_tpu_torch.ops.streamed import lse_vjp_empty_cuda  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import make_streamed_double_logsumexp  # noqa: E402
 from gwinferno_tpu_torch.ops.streamed import reshape_bank_rows  # noqa: E402
 from gwinferno_tpu_torch.parallel import create_mesh  # noqa: E402
@@ -240,6 +251,10 @@ from gwinferno_tpu_torch.pipeline.bspline_model import bank_log_weights  # noqa:
 from gwinferno_tpu_torch.pipeline.bspline_model import build_bspline_models  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import model_from_args  # noqa: E402
 from gwinferno_tpu_torch.pipeline.bspline_model import run_bspline_analysis  # noqa: E402
+from gwinferno_tpu_torch.examples import simple_powerlaw_peak_example as plpk_example  # noqa: E402
+from gwinferno_tpu_torch.examples.simple_bspline_example import bspline_ppds  # noqa: E402
+from gwinferno_tpu_torch.examples.utils import run_powerlawpeak_analysis  # noqa: E402
+from gwinferno_tpu_torch.pipeline.utils import load_base_parser  # noqa: E402
 from gwinferno_tpu_torch import ppl  # noqa: E402
 from gwinferno_tpu_torch.distributions import per_chain  # noqa: E402
 from gwinferno_tpu_torch.pipeline.analysis import hierarchical_likelihood  # noqa: E402
@@ -258,6 +273,7 @@ from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePr
 from gwinferno_tpu_torch.models.spline_perturbation import PowerlawBasisSplinePrimaryRatio  # noqa: E402
 from gwinferno_tpu_torch.postprocess import calculations  # noqa: E402
 from gwinferno_tpu_torch.preprocess import data_collection  # noqa: E402
+from gwinferno_tpu_torch.preprocess.conversions import alpha_beta_from_mu_var  # noqa: E402
 from gwinferno_tpu_torch.preprocess.conversions import chieff_from_q_component_spins  # noqa: E402
 from gwinferno_tpu_torch.preprocess.conversions import chip_from_q_component_spins  # noqa: E402
 from gwinferno_tpu_torch.preprocess.native import chi_p_prior_given_chi_eff_q_batch  # noqa: E402
@@ -1398,8 +1414,8 @@ def bspline_nuts(pedict, injdict, constants, bargs):
     with phase(f"NUTS on the B-spline fused route: {bargs.warmup} warmup + {bargs.samples} samples, "
                f"{bargs.chains} chains, whitened, target {bargs.target_accept}, diagonal mass, depth {bargs.max_tree_depth}"), \
             ModelRuns() as runs:
-        posterior, models = run_bspline_analysis(pedict, injdict, constants, list(pedict), bargs, device="cuda",
-                                                 dtype=torch.float32)
+        posterior, models, mcmc = run_bspline_analysis(pedict, injdict, constants, list(pedict), bargs,
+                                                       device="cuda", dtype=torch.float32)
         torch.cuda.synchronize()
     n_k3, n_k1 = FLW_KERNEL.launches, DLSE_KERNEL.launches
     log(f"  launches on the B-spline fused route: K3 {n_k3}, K1 {n_k1}")
@@ -1407,7 +1423,6 @@ def bspline_nuts(pedict, injdict, constants, bargs):
         raise AssertionError("K3 was not launched on the B-spline fused route")
     if n_k1 != 0:
         raise AssertionError("K1 ran on the B-spline fused route, which reduces both banks with K3")
-    mcmc = models["_mcmc"]
     extra = mcmc.get_extra_fields()
     n_draws = bargs.samples * bargs.chains
     # get_deterministic runs the model once a batch of 64 draws
@@ -1429,6 +1444,12 @@ def bspline_nuts(pedict, injdict, constants, bargs):
     log(f"  ESS lamb {effective_sample_size(samples['lamb']):.1f}, unscaled_rate "
         f"{effective_sample_size(samples['unscaled_rate']):.1f}; posterior means lamb "
         f"{float(posterior['lamb'].double().mean()):.3f}, rate {float(posterior['rate'].double().mean()):.3f}")
+    with phase("B-spline example's PPDs (bspline_ppds) of the run's posterior"):
+        pdfs, grids = bspline_ppds(posterior, models, bargs)
+        for k, v in pdfs.items():
+            if v.shape != (n_draws, len(grids[k])) or not np.isfinite(v).all():
+                raise AssertionError(f"B-spline PPD {k}: shape {v.shape}, not finite")
+        log(f"  {len(pdfs)} PPDs ({', '.join(sorted(pdfs))}) of {n_draws} draws finite")
     return n_k3
 
 
@@ -1996,17 +2017,22 @@ def outside_loop_runs(mcmc, seed, *model_args, init_params=None):
 def check_async_runs(label, mcmc, runs, outside):
     """A NUTS route's run went through the async scheduler: its ``runs``
     model runs are ``outside`` the loop plus the async formula for its
-    ``num_steps``, one host read a round; prints the sync formula's count
-    for the same ``num_steps`` beside them."""
+    ``num_steps`` over the run's segments (``max_steps_per_call``, and a
+    tenth of the run under ``progress_bar``), one host read a round and,
+    under ``progress_bar``, one more a segment; prints the sync formula's
+    count for the same ``num_steps`` beside them."""
     steps = mcmc.transition_steps
-    loop = loop_model_runs(steps, "async", 1, mcmc.max_steps_per_call)
+    T = steps.shape[0]
+    seg = min(T, mcmc.max_steps_per_call or T, max(1, T // 10) if mcmc.progress_bar else T)
+    loop = loop_model_runs(steps, "async", 1, seg)
+    reads = loop + (math.ceil(T / seg) if mcmc.progress_bar and seg < T else 0)
     sync = loop_model_runs(steps, "sync")
-    log(f"  model runs {runs} = {outside} outside the loop + {loop} in it (async: per segment, the max over chains "
-        f"of the sum of its leapfrogs); the sync formula gives {sync} for the same num_steps "
-        f"({sync / max(loop, 1):.3f}x); {mcmc.host_reads} host reads")
-    if runs != outside + loop or mcmc.host_reads != loop:
+    log(f"  model runs {runs} = {outside} outside the loop + {loop} in it (async: per segment of {seg} "
+        f"transitions, the max over chains of the sum of its leapfrogs); the sync formula gives {sync} for the same "
+        f"num_steps ({sync / max(loop, 1):.3f}x); {mcmc.host_reads} host reads")
+    if runs != outside + loop or mcmc.host_reads != reads:
         raise AssertionError(f"{label} route: {runs} model runs and {mcmc.host_reads} host reads; the async "
-                             f"scheduler gives {outside} + {loop} and {loop}")
+                             f"scheduler gives {outside} + {loop} and {reads}")
 
 
 def _same_run(a, b):
@@ -2841,6 +2867,159 @@ def chunked_route(catalog, z_model, init, args, gen):
     return {"table": table, "particles": big, "nuts_launches": n_k1, "nuts_wall_s": wall}
 
 
+# ----------------------------------------------------------------- the quick-start example (K1)
+
+# the powerlaw+peak example's run in the smoke: chains, transitions, and
+# its gradients' chain counts
+PLPK_CHAINS, PLPK_WARMUP, PLPK_SAMPLES = 4, 5, 5
+PLPK_GRAD_CHAINS = (4, 16)
+PLPK_DETERMINISTIC = ("alpha_a1", "beta_a1", "alpha_a2", "beta_a2", "mass_1_obs_event_0", "redshift_pred_event_0")
+
+
+def plpk_args(seed):
+    """The example's command line as a user gives it (the parser's mass
+    range 3-100), cut to the smoke's chains, transitions and depth."""
+    return load_base_parser().parse_args([
+        "--chains", str(PLPK_CHAINS), "--warmup", str(PLPK_WARMUP), "--samples", str(PLPK_SAMPLES),
+        "--max-tree-depth", str(MAX_TREE_DEPTH), "--rngkey", str(seed),
+    ])
+
+
+def plpk_potential(pedict, injdict, constants, args, device, dtype):
+    """The potential of the example's ``model`` on the catalog, on
+    ``device`` in ``dtype``."""
+    z_model = PowerlawRedshiftModel(pedict["redshift"], injdict["redshift"], device=device, dtype=dtype)
+    pe, inj = to_tensors(pedict, device, dtype), to_tensors(injdict, device, dtype)
+    names = list(pedict)
+
+    def bound():
+        plpk_example.model(pe, inj, constants["nObs"], constants["obs_time"], constants["total_inj"], z_model,
+                           args.mmin, args.mmax, names)
+
+    return ModelPotential(bound, device=device, dtype=dtype)
+
+
+def check_plpk_against_cpu(pedict, injdict, constants, params, args, n_events=10, n_found=10000):
+    """The example's float32 potential and gradient on the card against a
+    float64 CPU evaluation on a slice of the catalog (1e-4 on the potential,
+    1e-3 relative on the gradient), as the config route's check."""
+    pe, inj, const = _slice(pedict, injdict, constants, n_events, n_found)
+    C = next(iter(params.values())).shape[0]
+    out = []
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        pot = plpk_potential(pe, inj, const, args, dev, dtype)
+        z = pot.unconstrain({k: v.to(dev, dtype) for k, v in params.items()}, C)
+        out.append([t.double().cpu() for t in pot.value_and_grad(z)])
+    (u32, g32), (u64, g64) = out
+    if not (torch.isfinite(u64).all() and (u64.abs() < 1e30).all()):
+        raise AssertionError(f"reference potential off the likelihood walls expected, got {u64}")
+    torch.testing.assert_close(u32, u64, rtol=1e-4, atol=1e-3)
+    rel = float((g32 - g64).norm() / g64.norm())
+    if not rel < 1e-3:
+        raise AssertionError(f"float32 card gradient differs from the float64 CPU one: relative error {rel:.3e}")
+    log(f"  C={C}: card f32 vs CPU f64 on {n_events} events x {pe['prior'].shape[1]} + {n_found} injections: "
+        f"max|dU|={float((u32 - u64).abs().max()):.3e}, grad rel err={rel:.3e}")
+
+
+def plpk_gradients(pedict, injdict, constants, args, gen):
+    """The example's potential and gradient at each of ``PLPK_GRAD_CHAINS``
+    from the bench problem's jittered starts (its sites are the example's):
+    against the CPU, timed (CUDA events, median of 10), K1 exactly twice a
+    model run and the other kernels never; the last one profiled.  Returns
+    ``({C: ms}, K1 launches)``."""
+    pot = plpk_potential(pedict, injdict, constants, args, "cuda", torch.float32)
+    ms, n_k1 = {}, 0
+    for C in PLPK_GRAD_CHAINS:
+        params = jittered_init(C, gen, dtype=torch.float64)
+        with phase(f"powerlaw+peak example: reference check, C={C}"):
+            check_plpk_against_cpu(pedict, injdict, constants, params, args)
+        with phase(f"powerlaw+peak example: potential + gradient, C={C}"):
+            z = pot.unconstrain({k: v.float() for k, v in params.items()}, C)
+            _zero_counts()
+            with ModelRuns() as runs:
+                u, g = pot.value_and_grad(z)
+                torch.cuda.synchronize()
+                if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all())
+                        and bool((u.abs() < 1e30).all())):
+                    raise AssertionError(f"powerlaw+peak example: potential or gradient not finite or on a wall at "
+                                         f"C={C}: {u}")
+                ms[C] = float(np.median([call_ms(lambda: pot.value_and_grad(z)) for _ in range(10)]))
+            n_k1 += _check_k1_only(f"the powerlaw+peak example's gradients at C={C}", runs.runs)
+            log(f"  one batched potential + gradient at C={C}: {ms[C]:.3f} ms (CUDA events around each call, "
+                "median of 10)")
+    with phase(f"powerlaw+peak example: profile, C={C}"):
+        profile_routes({f"powerlaw+peak example C={C}": pot}, z)
+    return ms, n_k1
+
+
+def plpk_example_route(args, catalog, gen):
+    """The README's powerlaw+peak example (``gwinferno_tpu_torch/examples/``)
+    at full width on the smoke's catalog, float32: its model's gradient at
+    C = 4 and 16 against a float64 CPU slice (:func:`plpk_gradients`), then
+    a ``PLPK_WARMUP`` + ``PLPK_SAMPLES`` NUTS run at ``PLPK_CHAINS`` chains
+    (async, depth 6) through ``run_powerlawpeak_analysis`` from the
+    jittered starts, the Beta shape and two posterior-predictive sites from
+    ``get_deterministic``, and ``powerlawpeak_ppds``: every site finite,
+    every PPD finite and normalized (a spin magnitude's but at draws with a
+    Beta shape under 1, ROADMAP F9), K1 exactly twice a model run, K2, K3
+    and lse_vjp never, the model runs by the async formula.  Returns ``(K1
+    launches, {C: gradient ms}, phase s)``."""
+    pedict, injdict, constants = catalog
+    t0 = time.perf_counter()
+    pargs = plpk_args(args.seed)
+    ms, n_grad = plpk_gradients(pedict, injdict, constants, pargs, gen)
+    init = flat_starts(jittered_init(PLPK_CHAINS, gen, dtype=torch.float64))
+    _zero_counts()
+    with phase(f"powerlaw+peak example: NUTS through run_powerlawpeak_analysis, {PLPK_WARMUP} warmup + "
+               f"{PLPK_SAMPLES} samples, {PLPK_CHAINS} chains, depth {MAX_TREE_DEPTH}"), ModelRuns() as runs:
+        posterior, z_model, mcmc = run_powerlawpeak_analysis(
+            plpk_example.model, pedict, injdict, constants, list(pedict), pargs, device="cuda", dtype=torch.float32,
+            init_params=init)
+        det = mcmc.get_deterministic(site_names=set(PLPK_DETERMINISTIC))
+        torch.cuda.synchronize()
+    n_k1 = _check_k1_only("the powerlaw+peak example's NUTS run", runs.runs)
+    n_draws = PLPK_CHAINS * PLPK_SAMPLES
+    # each get_deterministic runs the model once a batch of 64 draws
+    check_async_runs("powerlaw+peak example", mcmc, runs.runs - 2 * math.ceil(n_draws / 64),
+                     outside_loop_runs(mcmc, pargs.rngkey, init_params=init))
+    want = set(init) | {"rate", "surveyed_hypervolume", "detection_efficiency"}
+    if set(posterior) != want:
+        raise AssertionError(f"powerlaw+peak posterior has {sorted(posterior)}, want {sorted(want)}")
+    for k, v in {**posterior, **det}.items():
+        if tuple(v.shape) != (n_draws,) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"powerlaw+peak example, site {k}: values of shape {tuple(v.shape)} not finite")
+    for site in ("a1", "a2"):
+        a, b = alpha_beta_from_mu_var(posterior[f"mu_{site}"], posterior[f"var_{site}"])
+        torch.testing.assert_close(det[f"alpha_{site}"], a, rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(det[f"beta_{site}"], b, rtol=1e-6, atol=0.0)
+    extra = mcmc.get_extra_fields()
+    log(f"  wall: init {mcmc.timings['init']:.2f} s, warmup {mcmc.timings.get('warmup', 0.0):.2f} s, sampling "
+        f"{mcmc.timings['sample']:.2f} s; mean tree depth {float(extra['tree_depth'].double().mean()):.2f}, "
+        f"divergences {int(extra['diverging'].sum())}; {len(posterior)} posterior sites and "
+        f"{', '.join(PLPK_DETERMINISTIC)} finite")
+    with phase("powerlaw+peak example: powerlawpeak_ppds"):
+        pdfs, grids = plpk_example.powerlawpeak_ppds(posterior, z_model, pargs)
+        # a Beta pdf with a shape under 1 is infinite at that end of [0, 1]:
+        # the trapezoid that normalizes it is too, and the draw's row is the
+        # JAX package's 0 with a NaN at the end (ROADMAP F9)
+        shape_under_1 = {k: np.minimum(*(det[f"{s}_{k}"].double().cpu().numpy() for s in ("alpha", "beta"))) < 1.0
+                         for k in ("a1", "a2")}
+        for k, v in pdfs.items():
+            bad = ~np.isfinite(v).all(-1)
+            if v.shape != (n_draws, len(grids[k])) or (bad & ~shape_under_1.get(k, np.zeros(n_draws, bool))).any():
+                raise AssertionError(f"powerlaw+peak PPD {k}: shape {v.shape}, {int(bad.sum())} rows not finite")
+            norm = np.trapezoid(v[~bad], grids[k], axis=-1)
+            if k != "redshift" and not np.allclose(norm, 1.0, rtol=1e-3):
+                raise AssertionError(f"powerlaw+peak PPD {k}: normalizations {norm}")
+        degenerate = {k: int(v.sum()) for k, v in shape_under_1.items()}
+        log(f"  {len(pdfs)} PPDs of {n_draws} draws finite and normalized but the spin-magnitude draws with a "
+            f"Beta shape under 1 ({degenerate}; F9)")
+    secs = time.perf_counter() - t0
+    log(f"  powerlaw+peak example phase: {secs:.2f} s; K1 {n_grad} launches over the gradients, {n_k1} over the "
+        "NUTS run")
+    return n_grad + n_k1, ms, secs
+
+
 # ----------------------------------------------------------------- generic streamed op
 
 
@@ -2891,10 +3070,10 @@ def check_lse_vjp(label, lw32, gen):
                 bound, by = _lse_vjp_bound_ms(rows, n, 4)
                 out = {"max_abs_err": err, "ms": time_ms(lambda: lse_vjp(x, g1, g2, l1, l2)),
                        "plain_ms": time_ms(lambda: _lse_vjp_torch(x, g1, g2, l1, l2)), "bound_ms": bound,
-                       "bound_by": by}
+                       "bound_by": by, "launch_floor_ms": time_ms(lambda: lse_vjp_empty_cuda(rows, n))}
                 log(f"  lse_vjp {label} {tuple(x.shape)} f32: max_abs_err={err:.3e}; kernel_ms={out['ms']:.4f} "
                     f"plain_ms={out['plain_ms']:.4f} bound_ms={bound:.4f} ({by}; {bound / out['ms']:.1%} of the "
-                    "bound)")
+                    f"bound); an empty kernel of the same grid {out['launch_floor_ms']:.4f} ms on the same timer")
             else:
                 log(f"  lse_vjp {label} {tuple(x.shape)} {str(dtype)[6:]} {case}: max_abs_err={err:.3e}, ok")
     return out
@@ -3186,6 +3365,7 @@ def main(argv=None):
     world_one = world_one_phase(catalog, z_model, init, args, async_run)
     two_ranks = two_rank_phase(catalog, z_model, init)
     chieff_launches, chieff_ms, n_common = chieff_route(args, catalog, ppds, gen)
+    plpk_launches, plpk_ms, plpk_secs = plpk_example_route(args, catalog, gen)
 
     pe, inj = k1["flat_pe"], k1["flat_inj"]
     k2_common = {"route": "cuda", "source": os.path.relpath(STREAMED_FWD_KERNEL.source_path, HERE),
@@ -3224,6 +3404,12 @@ def main(argv=None):
             "chieff_route_launches": chieff_launches,
             "chieff_route_grad_ms": {str(C): v for C, v in chieff_ms.items()},
             "chieff_route_n_common": n_common,
+            # the README's powerlaw+peak example: its launches over the
+            # gradients at C = 4 and 16 and its NUTS run (two a model run),
+            # its gradient ms, the phase's seconds
+            "plpk_example_launches": plpk_launches,
+            "plpk_example_grad_ms": {str(C): v for C, v in plpk_ms.items()},
+            "plpk_example_phase_s": plpk_secs,
             # SMC's two calls at 1024 particles (kernel, plain, library, bound)
             "smc_ms": k1["smc_pe"]["ms"] + k1["smc_inj"]["ms"],
             "smc_plain_ms": k1["smc_pe"]["plain_ms"] + k1["smc_inj"]["plain_ms"],
@@ -3270,6 +3456,7 @@ def main(argv=None):
             "max_abs_err": max(v["max_abs_err"] for v in generic["vjp"].values()),
             **{k: generic["vjp"][f"PE rows 0:8 C={N_CHAINS}"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
+            "launch_floor_ms": generic["vjp"][f"PE rows 0:8 C={N_CHAINS}"]["launch_floor_ms"],
             "per_block": generic["vjp"],
             "per_call_launches": generic["vjp_launches"],
         },

@@ -194,6 +194,26 @@ class BasisSpline:
             norm = norm.reshape((-1,) + (1,) * (out.ndim - 1))
         return out * norm
 
+    def eval(self, xs, coefs):
+        """The curve at ``xs``: :meth:`project` of :meth:`bases` ``(xs)``,
+        on the basis' device in its dtype.  ``coefs`` ``(C, N)`` gives ``(C,
+        *xs.shape)``; a single ``(N,)`` vector gives ``xs.shape``."""
+        coefs = torch.as_tensor(coefs, dtype=self.dtype, device=self.device)
+        out = self.project(self._to_device(self.bases(xs)), coefs.reshape(-1, self.N))
+        return out[0] if coefs.ndim == 1 else out
+
+    def __call__(self, xs, coefs):
+        return self.eval(xs, coefs)
+
+    def get_coefficients(self, xs, ys):
+        """Least-squares coefficients of the basis to data ``ys`` at 1-D
+        ``xs``, in float64 on the host: ``(alpha (N,), fit (n,), design (n,
+        N))``, the fit being ``design @ alpha``."""
+        design = torch.as_tensor(self.bases(xs).T, dtype=torch.float64)
+        ys = torch.as_tensor(np.asarray(ys, dtype=np.float64))
+        alpha = torch.linalg.lstsq(design, ys[:, None]).solution[:, 0]
+        return alpha, design @ alpha, design
+
 
 class BSpline(BasisSpline):
     """B-spline basis (a partition of unity), normalized by the trapezoid of

@@ -72,6 +72,8 @@ int launch(const T* lw, const T* g1, const T* g2, const T* l1, const T* l2, T* w
   return static_cast<int>(cudaGetLastError());
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -84,6 +86,16 @@ int gw_lse_vjp_f32(const float* lw, const float* g1, const float* g2, const floa
 int gw_lse_vjp_f64(const double* lw, const double* g1, const double* g2, const double* l1, const double* l2, double* w,
                    long long rows, long long n, void* stream) {
   return launch<double>(lw, g1, g2, l1, l2, w, rows, n, stream);
+}
+
+// the launch floor: an empty kernel with lse_vjp's grid and threads on a
+// (rows, n) block
+int gw_lse_vjp_empty(long long rows, long long n, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  const long long blocks = rows * ((n + kTile - 1) / kTile);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  empty_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* gw_cuda_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

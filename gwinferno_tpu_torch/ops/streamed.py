@@ -153,7 +153,8 @@ _VJP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 LSE_VJP_KERNEL = Kernel(
     "gw_lse_vjp",
     "lse_vjp.cu",
-    {"gw_lse_vjp_f32": _VJP_ARGS, "gw_lse_vjp_f64": _VJP_ARGS},
+    {"gw_lse_vjp_f32": _VJP_ARGS, "gw_lse_vjp_f64": _VJP_ARGS,
+     "gw_lse_vjp_empty": [ctypes.c_longlong] * 2 + [ctypes.c_void_p]},
     replaces="gwinferno_tpu/ops/streamed.py:134",
 )
 
@@ -396,6 +397,13 @@ def lse_vjp_cuda(lw, g1, g2, l1, l2):
                             l1.data_ptr(), l2.data_ptr(), w.data_ptr(), rows, n, stream)
     LSE_VJP_KERNEL.launches += 1
     return w
+
+
+def lse_vjp_empty_cuda(rows, n):
+    """Launch an empty kernel with lse_vjp's grid and threads on a ``(rows,
+    n)`` block, on the current stream: the launch floor lse_vjp's time is
+    read against."""
+    LSE_VJP_KERNEL.call("gw_lse_vjp_empty", rows, n, torch.cuda.current_stream().cuda_stream)
 
 
 def lse_vjp(lw, g1, g2, l1, l2):

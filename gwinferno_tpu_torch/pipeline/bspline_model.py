@@ -165,17 +165,19 @@ def model_from_args(pedict, injdict, constants, param_names, models, args):
 
 def run_bspline_analysis(pedict, injdict, constants, param_names, args, skip_inference=False, device=None,
                          dtype=torch.float32):
-    """Build the B-spline models, run NUTS on :class:`BSplineModel` and
-    return ``(posterior, models)``.
+    """Build the B-spline models, run NUTS on :class:`BSplineModel` with a
+    progress bar on stderr, print the run's summary and return
+    ``(posterior, models, mcmc)``.
 
     ``args`` carries the example's settings: ``m_nsplines``, ``q_nsplines``,
     ``a_nsplines``, ``tilt_nsplines``, ``z_nsplines``, ``mmin``, ``mmax``,
     ``warmup``, ``samples``, ``chains``, ``thinning``, ``rngkey`` and, with
     the example's defaults, ``fused``, ``reparam``, the ``*_tau`` scales,
-    ``target_accept`` (0.8) and ``max_tree_depth`` (10).  The posterior holds
+    ``target_accept`` (0.8), ``max_tree_depth`` (10), ``max_steps_per_call``
+    (None) and ``chain_scheduler`` ("auto").  The posterior holds
     every sample site and the deterministic rate, surveyed hypervolume,
-    detection efficiency and coefficient blocks; ``models["_mcmc"]`` is the
-    run.  With ``skip_inference`` only the models are built and returned.
+    detection efficiency and coefficient blocks.  With ``skip_inference``
+    only the models are built and returned.
     """
     models = build_bspline_models(pedict, injdict, args, device=device, dtype=dtype)
     if skip_inference:
@@ -191,11 +193,14 @@ def run_bspline_analysis(pedict, injdict, constants, param_names, args, skip_inf
         num_samples=args.samples,
         num_chains=args.chains,
         thinning=args.thinning,
+        progress_bar=True,
+        max_steps_per_call=getattr(args, "max_steps_per_call", None),
+        chain_scheduler=getattr(args, "chain_scheduler", "auto"),
         device=device,
         dtype=dtype,
     )
     mcmc.run(args.rngkey)
+    mcmc.print_summary()
     posterior = dict(mcmc.get_samples())
     posterior.update(mcmc.get_deterministic(site_names={"rate", "surveyed_hypervolume", "detection_efficiency", *COEF_SITES}))
-    models["_mcmc"] = mcmc
-    return posterior, models
+    return posterior, models, mcmc

@@ -25,6 +25,7 @@ from .infer_util import transform_fn
 from .infer_util import unconstrain_fn
 from .primitives import deterministic
 from .primitives import factor
+from .primitives import get_rng_key
 from .primitives import plate
 from .primitives import sample
 
@@ -33,6 +34,7 @@ __all__ = [
     "sample",
     "deterministic",
     "factor",
+    "get_rng_key",
     "plate",
     "trace",
     "seed",

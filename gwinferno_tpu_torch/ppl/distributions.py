@@ -118,6 +118,11 @@ class Distribution:
     def log_prob(self, value):
         raise NotImplementedError
 
+    def expand_shapes(self, sample_shape=()):
+        """The shape of a draw of ``sample_shape``: ``sample_shape +
+        batch_shape + event_shape``."""
+        return tuple(sample_shape) + self.shape
+
 
 def population_log_prob(d, value):
     """``d.log_prob`` of data ``value`` with ``d``'s batch (chain) axes in

@@ -73,6 +73,13 @@ class seed(Messenger):
             raise TypeError("seed needs an int or a torch.Generator")
         self.generator = rng_seed
 
+    def next_key(self):
+        """A fresh generator on this handler's device, seeded from a draw of
+        its generator (which advances it, as splitting advances a JAX key)."""
+        g = self.generator
+        sub = int(torch.randint(0, 2**63 - 1, (1,), generator=g, device=g.device))
+        return torch.Generator(device=g.device).manual_seed(sub)
+
     def process_message(self, msg):
         if msg["type"] == "sample" and msg["value"] is None and msg["generator"] is None:
             msg["generator"] = self.generator

@@ -167,3 +167,15 @@ class plate:
     def __exit__(self, *exc):
         _PLATE_STACK.pop()
         return False
+
+
+def get_rng_key():
+    """A fresh ``torch.Generator`` split off the innermost ``seed`` handler
+    (:meth:`~gwinferno_tpu_torch.ppl.handlers.seed.next_key`), or None
+    outside any."""
+    from .handlers import seed
+
+    for handler in reversed(_HANDLER_STACK):
+        if isinstance(handler, seed):
+            return handler.next_key()
+    return None

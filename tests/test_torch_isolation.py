@@ -641,3 +641,66 @@ def test_k3_kernel_matches_plain_version_on_the_card(num_chains):
         live = torch.isfinite(lbf) & torch.isfinite(lne)
         grads.append(torch.autograd.grad(lbf[live].sum() + 0.5 * lne[live].sum(), ct)[0].cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-10, atol=1e-10)
+
+
+def test_examples_subpackage_stands_alone():
+    """The quick-start examples (``gwinferno_tpu_torch/examples/``) are
+    among the files checked above, import with JAX, the JAX package,
+    h5py, PyYAML and matplotlib all blocked (those three only inside the
+    functions that read or write files or draw), and their parsers answer
+    ``--help`` so."""
+    names = ("utils", "simple_powerlaw_peak_example", "simple_bspline_example")
+    files = set(_port_files())
+    for n in names:
+        assert os.path.join(PKG, "examples", f"{n}.py") in files
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'h5py', 'yaml', 'matplotlib', 'gwinferno_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from gwinferno_tpu_torch.examples import simple_bspline_example, simple_powerlaw_peak_example, utils\n"
+        "for main in (simple_powerlaw_peak_example.main, simple_bspline_example.main):\n"
+        "    try:\n"
+        "        main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok") and "--device" in out.stdout and "--pe-inj-file" in out.stdout
+
+
+@pytest.mark.cuda
+def test_lse_vjp_kernel_at_odd_lengths_unaligned_starts_and_edge_rows():
+    """lse_vjp against its plain version in float32 and float64: odd row
+    lengths and rows shorter than a 16-byte vector, a block whose first
+    entry sits 1 and 3 entries past a 16-byte boundary, all -inf rows, a
+    row whose ``l2`` is +inf, the generic op's PE block at C = 16 and at
+    SMC's 1024 chains; two launches equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import math
+
+    from gwinferno_tpu_torch.ops.streamed import LSE_VJP_KERNEL, _lse_vjp_torch, lse_vjp
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype, tol in ((torch.float32, dict(atol=1e-6, rtol=1e-5)), (torch.float64, dict(atol=1e-15, rtol=1e-12))):
+        for shape in ((16, 8, 8000), (3, 8193), (7, 1), (4, 3), (2, 9, 4099), (1024, 8, 8000)):
+            for skew in (0, 1, 3):
+                base = 2.0 * torch.randn(math.prod(shape) + skew, generator=g, device="cuda", dtype=dtype)
+                lw = base[skew:].view(shape)
+                lw[..., 0, :] = -torch.inf
+                if shape[-2] > 1:
+                    lw[..., 1, ::3] = -torch.inf
+                l1, l2 = torch.logsumexp(lw, -1), torch.logsumexp(2 * lw, -1)
+                if shape[-2] > 2:
+                    l2[..., 2] = torch.inf
+                g1 = torch.rand(shape[:-1], generator=g, device="cuda", dtype=dtype)
+                g2 = torch.rand(shape[:-1], generator=g, device="cuda", dtype=dtype)
+                before = LSE_VJP_KERNEL.launches
+                got, again = lse_vjp(lw, g1, g2, l1, l2), lse_vjp(lw, g1, g2, l1, l2)
+                assert LSE_VJP_KERNEL.launches == before + 2
+                assert torch.equal(got, again)
+                assert bool(torch.isfinite(got).all()) and bool((got[..., 0, :] == 0).all())
+                torch.testing.assert_close(got, _lse_vjp_torch(lw, g1, g2, l1, l2), **tol)
